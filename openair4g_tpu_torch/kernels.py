@@ -1,0 +1,81 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+All sources compile in one `nvcc` call for `sm_90a` into one shared library
+with a plain C interface, loaded with ctypes. The library lands in
+`build/kernels/` at the repository root, named by a hash of the sources, so
+an edited source is rebuilt and an unchanged one is loaded as built.
+Nothing here runs at import: the first kernel launch builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+SOURCES = ("turbo_half_iter.cu", "mrc_llr.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.turbo_half_iter_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.turbo_half_iter_launch.restype = i
+    lib.mrc_llr_launch.argtypes = [p, p, p, p, ctypes.c_longlong,
+                                   ctypes.c_longlong, i, i, p]
+    lib.mrc_llr_launch.restype = i
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; returns the CDLL."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    srcs = [_CSRC / s for s in SOURCES]
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libopenair4g_kernels_{h.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not so.exists():
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        log = r.stderr
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _declare(lib)
+    build_info.update(path=str(so), seconds=time.perf_counter() - t0,
+                      ptxas=log, flags=" ".join(NVCC_FLAGS))
+    _lib = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,131 @@
+"""Joint 2D-LMMSE downlink channel estimation from the cell-specific RS
+(counterpart of openair4g_tpu/phy/channel_est.py, joint mode).
+
+The estimator matrix, its posterior error variance and the measured delay
+prior are host-side numpy (copied from the reference, whose module imports
+jax); on the device the estimate is one complex matmul
+[B, Np_total] x [Np_total, n_sc].
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..config import FrameParms
+from .resource_grid import GridMap, pilot_symbol_indices
+
+
+def _signed_freq_idx(fp: FrameParms, sc: np.ndarray) -> np.ndarray:
+    half = 6 * fp.n_rb
+    return np.where(sc < half, sc - half, sc - half + 1)
+
+
+def _delay_prior(fp: FrameParms) -> np.ndarray:
+    """Exponential delay-power prior over the CP support, tau_rms = CP/8."""
+    L = fp.cp + 2
+    p = np.exp(-np.arange(L) / (fp.cp / 8.0))
+    return p / p.sum()
+
+
+def _port_pilot_arrays(gm: GridMap, port: int):
+    """Per-pilot-symbol (sym, sc, bin, val) arrays [n_ps, Np] of one port."""
+    own = gm.pilot_port == port
+    n_ps = len(pilot_symbol_indices(gm.fp))
+    Np = own.sum() // n_ps
+    return (gm.pilot_sym[own].reshape(n_ps, Np),
+            gm.pilot_sc[own].reshape(n_ps, Np),
+            gm.pilot_bin[own].reshape(n_ps, Np),
+            gm.pilot_val[own].reshape(n_ps, Np))
+
+
+def _comb_offsets(gm: GridMap, port: int) -> tuple:
+    _, pilot_sc, _, _ = _port_pilot_arrays(gm, port)
+    return tuple(int(pilot_sc[s, 0] % 6) for s in range(pilot_sc.shape[0]))
+
+
+def _joint_terms(fp: FrameParms, offs: tuple, n0: float, prior):
+    """(P, A, C) of the joint estimator: prior over the cp+2 delay taps,
+    pilot covariance A = Fp P Fp^H + n0 I, cross term C = Fd P Fp^H."""
+    all_sc = np.concatenate([np.arange(off, fp.n_sc, 6) for off in offs])
+    taps = np.arange(fp.cp + 2)
+    Fp = np.exp(-2j * np.pi * _signed_freq_idx(fp, all_sc)[:, None]
+                * taps[None, :] / fp.n_fft)
+    Fd = np.exp(-2j * np.pi * _signed_freq_idx(fp, np.arange(fp.n_sc))[:, None]
+                * taps[None, :] / fp.n_fft)
+    P = _delay_prior(fp) if prior is None else np.asarray(prior, float)
+    A = (Fp * P) @ Fp.conj().T + n0 * np.eye(len(all_sc))
+    C = (Fd * P) @ Fp.conj().T
+    return P, A, C
+
+
+@functools.lru_cache(maxsize=None)
+def _wiener_joint_cached(fp: FrameParms, offs: tuple, n0: float, prior):
+    _, A, C = _joint_terms(fp, offs, n0, prior)
+    return (C @ np.linalg.inv(A)).T.astype(np.complex64)
+
+
+def make_wiener_joint(gm: GridMap, n0: float, port: int = 0,
+                      prior=None) -> np.ndarray:
+    """[Np_total, n_sc, 2] float32 (re/im packed) joint estimator matrix:
+    H_hat = ls @ W over all pilots of the subframe (quasi-static 2D LMMSE).
+    `prior`: explicit delay-power prior over the cp+2 taps, else exp."""
+    pr = None if prior is None else tuple(np.asarray(prior, float).tolist())
+    c = _wiener_joint_cached(gm.fp, _comb_offsets(gm, port), float(n0), pr)
+    return np.stack([c.real, c.imag], axis=-1).astype(np.float32)
+
+
+def joint_err_var(gm: GridMap, n0: float, port: int = 0,
+                  prior=None) -> np.ndarray:
+    """[n_sc] float32 posterior error variance of the joint estimator."""
+    P, A, C = _joint_terms(gm.fp, _comb_offsets(gm, port), n0, prior)
+    W = C @ np.linalg.inv(A)
+    post = float(np.sum(P)) - np.einsum("kp,kp->k", W, C.conj()).real
+    return np.maximum(post, 0.0).astype(np.float32)
+
+
+def measure_delay_prior(rgrid, gm: GridMap, n0: float,
+                        port: int = 0, floor: float = 1e-4) -> np.ndarray:
+    """Delay-power prior measured from received pilots (host numpy):
+    per pilot symbol, LS estimates at the comb are projected onto the cp+2
+    delay taps, tap powers averaged over batch and pilot symbols, the
+    noise floor subtracted, then floored and normalized."""
+    fp = gm.fp
+    pilot_sym, pilot_sc, pilot_bin, pilot_val = _port_pilot_arrays(gm, port)
+    n_ps = pilot_sym.shape[0]
+    L = fp.cp + 2
+    taps = np.arange(L)
+    p_tap = np.zeros(L)
+    noise_gain = np.zeros(L)
+    rg = np.asarray(rgrid)
+    for s in range(n_ps):
+        f_idx = _signed_freq_idx(fp, pilot_sc[s])[:, None]
+        F = np.exp(-2j * np.pi * f_idx * taps[None, :] / fp.n_fft)
+        A = F.conj().T @ F + n0 * len(pilot_sc[s]) * np.eye(L)
+        P = np.linalg.solve(A, F.conj().T)          # [L, Np]
+        y = rg[:, int(pilot_sym[s, 0])][:, pilot_bin[s]]
+        ls = y * np.conj(pilot_val[s])[None, :]
+        g = ls @ P.T
+        p_tap += np.mean(np.abs(g) ** 2, axis=0)
+        noise_gain += n0 * np.sum(np.abs(P) ** 2, axis=1)
+    p_tap = np.maximum(p_tap - noise_gain, 0.0) / n_ps
+    p_tap = np.maximum(p_tap, floor * p_tap.max() + 1e-12)
+    return p_tap / p_tap.sum()
+
+
+def estimate_channel_joint(rgrid, gm: GridMap, wiener_joint, port: int = 0):
+    """rgrid [B, nsym, n_fft] -> H_hat [B, nsym, n_sc]: one estimate from
+    all pilots of the subframe, broadcast over symbols. `wiener_joint`:
+    complex64 [Np_total, n_sc] tensor on rgrid's device."""
+    fp = gm.fp
+    dev = rgrid.device
+    pilot_sym, _, pilot_bin, pilot_val = _port_pilot_arrays(gm, port)
+    sym = torch.as_tensor(pilot_sym.reshape(-1), dtype=torch.long, device=dev)
+    bins = torch.as_tensor(pilot_bin.reshape(-1), dtype=torch.long,
+                           device=dev)
+    ref = torch.as_tensor(np.conj(pilot_val.reshape(-1)).astype(np.complex64),
+                          device=dev)
+    ls = rgrid[:, sym, bins] * ref                        # [B, Np_total]
+    h = ls @ wiener_joint
+    return h[:, None].expand(h.shape[0], fp.symbols_per_subframe, h.shape[-1])
