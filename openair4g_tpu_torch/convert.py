@@ -1,8 +1,8 @@
 """Carry the reference simulator's estimator state into the port.
 
-The joint-LMMSE matrix and its error variance are this system's only
-state beyond the static plans: with them converted, the JAX DlsimFading
-and the port's run with identical estimators.
+The estimator matrices (and the joint estimator's error variance) are this
+system's only state beyond the static plans: with them converted, the JAX
+simulators and the port's run with identical estimators.
 """
 from __future__ import annotations
 
@@ -20,6 +20,19 @@ def estimator_state_from_reference(wiener, err_var, device):
     if w.ndim != 3 or w.shape[-1] != 2 or ev.ndim != 1:
         raise ValueError(f"wiener {w.shape} must be [Np, n_sc, 2] and "
                          f"err_var {ev.shape} [n_data]")
-    W = torch.complex(torch.from_numpy(np.ascontiguousarray(w[..., 0])),
-                      torch.from_numpy(np.ascontiguousarray(w[..., 1])))
-    return W.to(device), torch.from_numpy(ev.copy()).to(device)
+    return _complex(w).to(device), torch.from_numpy(ev.copy()).to(device)
+
+
+def wiener_stack_from_reference(packed, device):
+    """packed: [n_ps, Np, n_sc, 2] float32 per-pilot-symbol Wiener matrices,
+    re/im on the last axis (make_wiener_stack of either package). Returns
+    the complex64 [n_ps, Np, n_sc] tensor estimate_channel takes."""
+    w = np.asarray(packed, np.float32)
+    if w.ndim != 4 or w.shape[-1] != 2:
+        raise ValueError(f"wiener stack {w.shape} must be [n_ps, Np, n_sc, 2]")
+    return _complex(w).to(device)
+
+
+def _complex(w: np.ndarray):
+    return torch.complex(torch.from_numpy(np.ascontiguousarray(w[..., 0])),
+                         torch.from_numpy(np.ascontiguousarray(w[..., 1])))

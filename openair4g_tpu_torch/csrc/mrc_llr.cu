@@ -89,6 +89,64 @@ void launch(const void* y, const void* h, const void* n0, void* out,
       period);
 }
 
+// Max-log demap of an already equalized stream with per-RE noise, one
+// thread per RE: metric(l) = -(x - l)^2 / n0 per Gray-PAM level, the
+// bit order of mrc_llr_kernel.
+//
+// Replaces the demap_llr_fused entry of the same TPU kernel
+// (openair4g_tpu/ops/equalize_llr.py:138, mrc_llr_pallas with A = 1 and a
+// ones tensor for h, x and h pre-scaled by rsqrt(n0)). Here there is no h
+// operand at all and n0 is read as it is. x and n0 are read at element
+// strides xs and ns, so one layer of a [..., 2] MMSE output is read in
+// place, without a copy: x[i * xs], n0[(i % n0_period) * ns].
+//
+// What bounds it: device memory, as mrc_llr (8 + 4 bytes in, 4 Qm out per
+// RE). With xs = 2 a warp's complex64 loads touch every other 8-byte
+// element, so half of each fetched sector is the other layer's, which the
+// second layer's pass then reads again from L2.
+template <int QM>
+__global__ void __launch_bounds__(256)
+demap_llr_kernel(const float2* __restrict__ x, const float* __restrict__ n0,
+                 float* __restrict__ out, long long n, long long xs,
+                 long long ns, long long n0_period) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float2 v = x[i * xs];
+  const float inv = 1.0f / n0[(n0_period == n ? i : i % n0_period) * ns];
+  constexpr int NB = QM / 2;
+  constexpr int NL = 1 << NB;
+  float* o = out + i * QM;
+#pragma unroll
+  for (int axis = 0; axis < 2; ++axis) {
+    const float a = axis ? v.y : v.x;
+    float m[NL];
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      const float d = a - level(QM, j);
+      m[j] = -(d * d) * inv;
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NL; ++j) {
+        if ((j >> (NB - 1 - b)) & 1) m1 = fmaxf(m1, m[j]);
+        else m0 = fmaxf(m0, m[j]);
+      }
+      o[2 * b + axis] = m0 - m1;
+    }
+  }
+}
+
+template <int QM>
+void launch_demap(const void* x, const void* n0, void* out, long long n,
+                  long long xs, long long ns, long long period,
+                  cudaStream_t st) {
+  const long long blocks = (n + 255) / 256;
+  demap_llr_kernel<QM><<<(unsigned)blocks, 256, 0, st>>>(
+      (const float2*)x, (const float*)n0, (float*)out, n, xs, ns, period);
+}
+
 }  // namespace
 
 // y, h: [n, A] interleaved complex64; n0: [n0_period] float32 with
@@ -107,6 +165,25 @@ extern "C" int mrc_llr_launch(const void* y, const void* h, const void* n0,
     case 22: launch<2, 2>(y, h, n0, out, n, n0_period, st); break;
     case 24: launch<2, 4>(y, h, n0, out, n, n0_period, st); break;
     case 26: launch<2, 6>(y, h, n0, out, n, n0_period, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x: n complex64 at element stride xs; n0: float32, element (i % n0_period)
+// at stride ns, n0_period dividing n; out: [n, Qm] float32.
+// Returns cudaGetLastError().
+extern "C" int demap_llr_launch(const void* x, const void* n0, void* out,
+                                long long n, long long xs, long long ns,
+                                long long n0_period, int Qm, void* stream) {
+  if (n <= 0 || xs <= 0 || ns <= 0 || n0_period <= 0 || n % n0_period != 0 ||
+      n / 256 >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (Qm) {
+    case 2: launch_demap<2>(x, n0, out, n, xs, ns, n0_period, st); break;
+    case 4: launch_demap<4>(x, n0, out, n, xs, ns, n0_period, st); break;
+    case 6: launch_demap<6>(x, n0, out, n, xs, ns, n0_period, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -162,7 +162,124 @@ turbo_half_iter_kernel(const float* __restrict__ lin, const float* __restrict__ 
   }
 }
 
+// The v1 kernel: the same half-iteration from window-replicated t-major
+// frames [T = W + U, L] (lane = block * n_w + window), built by the wrapper
+// as the TPU kernel's host code builds them:
+//   guf/gpf row t: position w*W - U + t (0 before the trellis start),
+//   gub/gpb row t: position w*W + t (BIG past the end).
+// Replaces openair4g_tpu/ops/turbo_pallas.py (_make_kernel / _build_call /
+// half_iteration_pallas_prepped) and follows its body lane for lane:
+//   * one backward sweep over all T rows from beta = 0, beta stored after
+//     each row (before the block's renormalization) in scr [T, 8, L],
+//   * forward warm-up over the U guf rows from alpha = 0; window 0 starts
+//     exactly in state 0,
+//   * forward work over W rows emitting (m0 + gu) - (m1 - gu) from
+//     beta[tau + 1],
+// renormalizing every R steps at the TPU kernel's points. It differs from
+// the v2 kernel only in beta at node W (stored before, not after, the
+// warm-up's last renormalization), which moves the LLR at a window's last
+// node by float rounding.
+//
+// Design: one thread per lane as in v2; at a fixed row t, neighbouring
+// lanes read neighbouring addresses of the t-major frames and of the
+// lane-minor scratch, so every load and store of a warp coalesces. What
+// bounds it: the serial recursion, as v2, plus the four frames' traffic
+// (4 T L floats in, W L out, 16 T L scratch bytes written and read).
+template <int R>
+__global__ void __launch_bounds__(128)
+turbo_half_iter_v1_kernel(const float* __restrict__ guf,
+                          const float* __restrict__ gpf,
+                          const float* __restrict__ gub,
+                          const float* __restrict__ gpb,
+                          float* __restrict__ out, float* __restrict__ scr,
+                          int L, int n_w, int W, int U) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= L) return;
+  const int T = W + U;
+  const long long Ll = L;
+
+  float beta[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) beta[s] = 0.f;
+  for (int i = 0; i < T / R; ++i) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = T - 1 - (i * R + r);
+      beta_step(beta, gub[t * Ll + lane], gpb[t * Ll + lane]);
+#pragma unroll
+      for (int s = 0; s < 8; ++s) scr[((long long)t * 8 + s) * Ll + lane] = beta[s];
+    }
+    normalize(beta);
+  }
+
+  float alpha[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) alpha[s] = 0.f;
+  for (int i = 0; i < U / R; ++i) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = i * R + r;
+      alpha_step(alpha, guf[t * Ll + lane], gpf[t * Ll + lane]);
+    }
+    normalize(alpha);
+  }
+  if (lane % n_w == 0) {
+    alpha[0] = 0.f;
+#pragma unroll
+    for (int s = 1; s < 8; ++s) alpha[s] = NEG;
+  }
+
+  for (int i = 0; i < W / R; ++i) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int tau = i * R + r;
+      const float gu = gub[tau * Ll + lane];
+      const float gp = gpb[tau * Ll + lane];
+      float bn[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) bn[s] = scr[((long long)(tau + 1) * 8 + s) * Ll + lane];
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const float gpt = par0(s) ? -gp : gp;
+        m0 = fmaxf(m0, (alpha[s] + gpt) + bn[next0(s)]);
+        m1 = fmaxf(m1, (alpha[s] - gpt) + bn[next1(s)]);
+      }
+      out[tau * Ll + lane] = (m0 + gu) - (m1 - gu);
+      alpha_step(alpha, guf[(U + tau) * Ll + lane], gpf[(U + tau) * Ll + lane]);
+    }
+    normalize(alpha);
+  }
+}
+
 }  // namespace
+
+// guf, gpf, gub, gpb: [W+U, L] float32 t-major frames; out: [W, L];
+// scr: [(W+U) * 8 * L] float32. Returns cudaGetLastError().
+extern "C" int turbo_half_iter_v1_launch(const void* guf, const void* gpf,
+                                         const void* gub, const void* gpb,
+                                         void* out, void* scr, int L, int n_w,
+                                         int W, int U, int R, void* stream) {
+  if (L <= 0 || n_w <= 0 || L % n_w != 0 || W <= 0 || U <= 0 || U > W ||
+      W % R != 0 || U % R != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(128), grid((L + 127) / 128);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* a = (const float*)guf;
+  const float* b = (const float*)gpf;
+  const float* c = (const float*)gub;
+  const float* d = (const float*)gpb;
+  float* o = (float*)out;
+  float* s = (float*)scr;
+  switch (R) {
+    case 8: turbo_half_iter_v1_kernel<8><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
+    case 4: turbo_half_iter_v1_kernel<4><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
+    case 2: turbo_half_iter_v1_kernel<2><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
+    case 1: turbo_half_iter_v1_kernel<1><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 // lin, lp, out: [B, n_w * W] float32 rows; scr: [(W+1) * 8 * B * n_w] float32.
 // Returns cudaGetLastError() after the launch (0 on success).

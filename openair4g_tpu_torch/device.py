@@ -13,7 +13,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 # One count per hand-written kernel: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-_LAUNCHES = {"turbo_half_iter": 0, "mrc_llr": 0}
+_LAUNCHES = {"turbo_half_iter": 0, "turbo_half_iter_v1": 0, "mrc_llr": 0,
+             "demap_llr": 0}
 
 
 def default_device() -> torch.device:

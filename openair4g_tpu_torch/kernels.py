@@ -44,6 +44,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mrc_llr_launch.argtypes = [p, p, p, p, ctypes.c_longlong,
                                    ctypes.c_longlong, i, i, p]
     lib.mrc_llr_launch.restype = i
+    ll = ctypes.c_longlong
+    lib.demap_llr_launch.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+    lib.demap_llr_launch.restype = i
+    lib.turbo_half_iter_v1_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                              i, p]
+    lib.turbo_half_iter_v1_launch.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -1,10 +1,12 @@
-"""Joint 2D-LMMSE downlink channel estimation from the cell-specific RS
-(counterpart of openair4g_tpu/phy/channel_est.py, joint mode).
+"""Downlink channel estimation from the cell-specific RS (counterpart of
+openair4g_tpu/phy/channel_est.py): the joint 2D-LMMSE estimator over all
+pilots of the subframe, and the per-pilot-symbol Wiener estimator with
+time averaging or linear time interpolation, per antenna port.
 
-The estimator matrix, its posterior error variance and the measured delay
-prior are host-side numpy (copied from the reference, whose module imports
-jax); on the device the estimate is one complex matmul
-[B, Np_total] x [Np_total, n_sc].
+The estimator matrices, the joint estimator's posterior error variance and
+the measured delay prior are host-side numpy (copied from the reference,
+whose module imports jax); on the device each estimate is complex matmuls
+of the least-squares pilot estimates with those matrices.
 """
 from __future__ import annotations
 
@@ -29,6 +31,44 @@ def _delay_prior(fp: FrameParms) -> np.ndarray:
     return p / p.sum()
 
 
+@functools.lru_cache(maxsize=None)
+def _wiener_matrix(n_rb: int, pilot_off: int, n0: float,
+                   normal_cp: bool = True) -> np.ndarray:
+    """[Np, n_sc] complex64 Wiener interpolation matrix for pilots at
+    subcarriers pilot_off + 6m (ls @ W -> H), exp delay prior over CP+2."""
+    fp = FrameParms(n_rb=n_rb, normal_cp=normal_cp)
+    p_sc = np.arange(pilot_off, fp.n_sc, 6)
+    taps = np.arange(fp.cp + 2)
+    Fp = np.exp(-2j * np.pi * _signed_freq_idx(fp, p_sc)[:, None]
+                * taps[None, :] / fp.n_fft)
+    Fd = np.exp(-2j * np.pi * _signed_freq_idx(fp, np.arange(fp.n_sc))[:, None]
+                * taps[None, :] / fp.n_fft)
+    P = _delay_prior(fp)
+    A = (Fp * P) @ Fp.conj().T + n0 * np.eye(len(p_sc))
+    W = (Fd * P) @ Fp.conj().T @ np.linalg.inv(A)   # [n_sc, Np]
+    return W.T.astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=None)
+def _time_interp_weights(n_rb: int, normal_cp: bool = True) -> np.ndarray:
+    """[nsym, n_pilot_sym] linear time-interpolation weights, clamped at the
+    subframe edges."""
+    fp = FrameParms(n_rb=n_rb, normal_cp=normal_cp)
+    psyms = np.asarray(pilot_symbol_indices(fp))
+    Wt = np.zeros((fp.symbols_per_subframe, len(psyms)), np.float32)
+    for l in range(fp.symbols_per_subframe):
+        if l <= psyms[0]:
+            Wt[l, 0] = 1.0
+        elif l >= psyms[-1]:
+            Wt[l, -1] = 1.0
+        else:
+            j = np.searchsorted(psyms, l) - 1
+            t = (l - psyms[j]) / (psyms[j + 1] - psyms[j])
+            Wt[l, j] = 1.0 - t
+            Wt[l, j + 1] = t
+    return Wt
+
+
 def _port_pilot_arrays(gm: GridMap, port: int):
     """Per-pilot-symbol (sym, sc, bin, val) arrays [n_ps, Np] of one port."""
     own = gm.pilot_port == port
@@ -38,6 +78,41 @@ def _port_pilot_arrays(gm: GridMap, port: int):
             gm.pilot_sc[own].reshape(n_ps, Np),
             gm.pilot_bin[own].reshape(n_ps, Np),
             gm.pilot_val[own].reshape(n_ps, Np))
+
+
+def make_wiener_stack(gm: GridMap, n0: float, port: int = 0) -> np.ndarray:
+    """[n_pilot_sym, Np, n_sc, 2] float32 (re/im packed) Wiener matrices,
+    one per pilot symbol's comb offset of antenna port `port`
+    (convert.wiener_stack_from_reference makes the device tensor)."""
+    _, pilot_sc, _, _ = _port_pilot_arrays(gm, port)
+    c = np.stack([_wiener_matrix(gm.fp.n_rb, int(pilot_sc[s, 0] % 6),
+                                 float(n0), gm.fp.normal_cp)
+                  for s in range(pilot_sc.shape[0])])
+    return np.stack([c.real, c.imag], axis=-1).astype(np.float32)
+
+
+def estimate_channel(rgrid, gm: GridMap, wiener_stack, time_avg: bool = False,
+                     port: int = 0):
+    """rgrid [B, nsym, n_fft] -> H_hat [B, nsym, n_sc] for antenna port
+    `port`: per pilot symbol, the LS estimates at its comb times that
+    symbol's Wiener matrix (`wiener_stack`: complex64 [n_ps, Np, n_sc] on
+    rgrid's device); then the mean over the pilot symbols (time_avg, the
+    quasi-static mode) or linear interpolation between them."""
+    fp = gm.fp
+    dev = rgrid.device
+    pilot_sym, _, pilot_bin, pilot_val = _port_pilot_arrays(gm, port)
+    sym = torch.as_tensor(pilot_sym, dtype=torch.long, device=dev)
+    bins = torch.as_tensor(pilot_bin, dtype=torch.long, device=dev)
+    ref = torch.as_tensor(np.conj(pilot_val).astype(np.complex64), device=dev)
+    ls = rgrid[:, sym, bins] * ref                        # [B, n_ps, Np]
+    h_p = torch.einsum("bpn,pnk->bpk", ls, wiener_stack)  # [B, n_ps, n_sc]
+    B, n_sc = h_p.shape[0], h_p.shape[-1]
+    if time_avg:
+        return h_p.mean(dim=1, keepdim=True).expand(
+            B, fp.symbols_per_subframe, n_sc)
+    Wt = torch.as_tensor(_time_interp_weights(fp.n_rb, fp.normal_cp),
+                         dtype=torch.complex64, device=dev)
+    return torch.einsum("sp,bpk->bsk", Wt, h_p)
 
 
 def _comb_offsets(gm: GridMap, port: int) -> tuple:

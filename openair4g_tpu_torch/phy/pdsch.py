@@ -27,6 +27,7 @@ class DlschConfig:
     n_turbo_iter: int = 8
     decoder_window: int | None = None   # None: 96 on CPU, 240 on CUDA
     decoder_warmup: int = 24
+    nports: int = 1          # TX antenna ports (2: 8 data REs/RB on pilot syms)
 
     @property
     def tbs(self) -> int:
@@ -38,8 +39,9 @@ class DlschConfig:
 
     @property
     def G(self) -> int:
-        """Coded bits of a full-band single-antenna-port allocation."""
-        return get_G_dl(self.n_rb, self.Qm, self.n_pdcch_symbols)
+        """Coded bits of a full-band allocation on `nports` antenna ports."""
+        return get_G_dl(self.n_rb, self.Qm, self.n_pdcch_symbols,
+                        siso=self.nports == 1)
 
 
 class DlschCodec:

@@ -129,6 +129,37 @@ def fill_grid(symbols, gm: GridMap):
     return src[:, idx].reshape(B, fp.symbols_per_subframe, fp.n_fft)
 
 
+@functools.lru_cache(maxsize=None)
+def _port_fill_index(gm: GridMap, port: int) -> np.ndarray:
+    """[nsym*n_fft] source indices into concat([data, own pilots, zero]):
+    the other ports' pilot REs point at the zero."""
+    fp = gm.fp
+    own = gm.pilot_port == port
+    nd, npi = gm.n_data_re, int(own.sum())
+    idx = np.full(fp.symbols_per_subframe * fp.n_fft, nd + npi, np.int64)
+    idx[gm.data_sym.astype(np.int64) * fp.n_fft + gm.data_bin] = \
+        np.arange(nd)
+    idx[gm.pilot_sym[own].astype(np.int64) * fp.n_fft
+        + gm.pilot_bin[own]] = nd + np.arange(npi)
+    return idx
+
+
+def fill_grid_port(symbols, gm: GridMap, port: int):
+    """Per-antenna-port grid for MIMO TX: symbols [B, n_data_re] on the data
+    REs and port `port`'s own pilots; the other port's pilot REs stay zero
+    (36.211 §6.10.1.2)."""
+    B = symbols.shape[0]
+    fp = gm.fp
+    dev = symbols.device
+    symbols = symbols.to(torch.complex64)
+    pv = torch.as_tensor(
+        gm.pilot_val[gm.pilot_port == port].astype(np.complex64), device=dev)
+    src = torch.cat([symbols, pv.expand(B, -1), symbols.new_zeros(B, 1)],
+                    dim=1)
+    idx = torch.as_tensor(_port_fill_index(gm, port), device=dev)
+    return src[:, idx].reshape(B, fp.symbols_per_subframe, fp.n_fft)
+
+
 def extract_data_res(grid, gm: GridMap):
     """grid [B, nsym, n_fft] -> [B, n_data_re] (inverse of the fill order)."""
     sym = torch.as_tensor(gm.data_sym, dtype=torch.long, device=grid.device)

@@ -1,5 +1,6 @@
 """Multipath fading channels applied in the frequency domain (counterpart of
-openair4g_tpu/sim/channels.py, single-antenna Rayleigh profiles).
+openair4g_tpu/sim/channels.py: the uncorrelated Rayleigh profiles, for any
+number of TX and RX antennas).
 
 Under the cyclic prefix a time-invariant multipath channel is a
 per-subcarrier gain H(k) = sum_t a_t exp(-j 2 pi f_k tau_t): one matmul of
@@ -23,12 +24,14 @@ PROFILES = {
             (0.0, -1.5, -1.4, -3.6, -0.6, -9.1, -7.0, -12.0, -16.9)),
     "ETU": ((0, .05, .12, .2, .23, .5, 1.6, 2.3, 5.0),
             (-1.0, -1.0, -1.0, 0.0, 0.0, 0.0, -3.0, -5.0, -7.0)),
+    "Rayleigh1": ((0.0,), (0.0,)),
 }
 
 
 @dataclass(frozen=True)
 class ChannelModel:
-    """Rayleigh tap-delay-line channel for one TX and one RX antenna."""
+    """Uncorrelated Rayleigh tap-delay-line channel, iid per (RX, TX)
+    antenna pair."""
     name: str                 # key into PROFILES
     fp: FrameParms
     n_tx: int = 1
@@ -36,10 +39,12 @@ class ChannelModel:
     delay_scale: float = 1.0  # multiplies every tap delay
 
     def __post_init__(self):
-        if self.name not in PROFILES or self.n_tx != 1 or self.n_rx != 1:
+        if self.name not in PROFILES:
             raise NotImplementedError(
-                f"ChannelModel({self.name!r}, {self.n_rx}x{self.n_tx}): the "
-                f"port has the 1x1 {sorted(PROFILES)} profiles only")
+                f"ChannelModel({self.name!r}): the port has the uncorrelated "
+                f"Rayleigh profiles {sorted(PROFILES)}; Ricean LOS (Rice1, "
+                "Rice8, SCM_D), antenna correlation (*_corr, *_anticorr, "
+                "SCM_C, SCM_D), Rayleigh8 and AWGN are not ported")
 
     @property
     def n_taps(self) -> int:
@@ -65,20 +70,21 @@ class ChannelModel:
 
     def draw_taps(self, batch: int, normals=None, generator=None,
                   device=None):
-        """Tap draw [B, T] complex64 with E sum_t |a_t|^2 = 1: iid complex
-        Gaussian scaled by sqrt(amps/2). `normals` [B, 1, 1, T, 2] are
-        injected standard normals; without them they are drawn from
-        `generator` on `device`."""
+        """Tap draw with E sum_t |a_t|^2 = 1 per antenna pair: iid complex
+        Gaussian scaled by sqrt(amps/2). Returns [B, T] complex64 for a 1x1
+        model and [B, n_rx, n_tx, T] otherwise. `normals`
+        [B, n_rx, n_tx, T, 2] are injected standard normals; without them
+        they are drawn from `generator` on `device`."""
+        shape = (batch, self.n_rx, self.n_tx, self.n_taps, 2)
         if normals is None:
-            normals = torch.randn(batch, 1, 1, self.n_taps, 2,
-                                  generator=generator, device=device)
-        if normals.shape != (batch, 1, 1, self.n_taps, 2):
-            raise ValueError(f"normals {tuple(normals.shape)} != "
-                             f"{(batch, 1, 1, self.n_taps, 2)}")
+            normals = torch.randn(*shape, generator=generator, device=device)
+        if normals.shape != shape:
+            raise ValueError(f"normals {tuple(normals.shape)} != {shape}")
         scale = torch.sqrt(torch.as_tensor(self.amps, device=normals.device)
                            / 2.0)
-        n = normals[:, 0, 0].to(torch.float32)
-        return torch.complex(scale * n[..., 0], scale * n[..., 1])
+        n = normals.to(torch.float32)
+        a = torch.complex(scale * n[..., 0], scale * n[..., 1])
+        return a[:, 0, 0] if self.n_tx == self.n_rx == 1 else a
 
     def freq_response(self, taps):
         """taps [..., T] -> H [..., n_sc] at the occupied subcarriers."""

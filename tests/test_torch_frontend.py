@@ -100,7 +100,7 @@ def test_channel_matches_reference_on_injected_taps():
 def test_channel_model_rejects_what_is_not_ported():
     fp = rg.make_grid_map(25, 1).fp
     with pytest.raises(NotImplementedError):
-        ch.ChannelModel("EVA", fp, n_rx=2)
+        ch.ChannelModel("Rayleigh1_corr", fp, n_tx=2, n_rx=2)
     with pytest.raises(NotImplementedError):
         ch.ChannelModel("Rice1", fp)
 

@@ -28,3 +28,14 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "imported" in r.stdout
+
+
+def test_multi_antenna_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert {"openair4g_tpu_torch.sim.dlsim_mimo",
+            "openair4g_tpu_torch.sim.dlsim_sm",
+            "openair4g_tpu_torch.phy.alamouti",
+            "openair4g_tpu_torch.phy.precoding",
+            "openair4g_tpu_torch.phy.mimo_rx",
+            "openair4g_tpu_torch.phy.dci_formats"} <= names
