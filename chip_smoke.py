@@ -30,14 +30,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      estimated channel, batch 128), 2048 trials at 14 and 15 dB, held to
      the corpus anchor fidelity_campaign.json "txdiv64";
  10. TM3 at full width (100 PRB, MCS 26/26, 2x2, batch 64): at 40 dB every
-     DCI decodes and each codeword's BLER over 10 steps is at most 0.2.
+     DCI decodes and each codeword's BLER over 10 steps is at most 0.2;
+ 11. mrc_llr at A = 2 against its plain version at the 1x2 path's shapes
+     (100 PRB, CFI 2, batch 128: data Qm = 6 with per-RE n0, PDCCH Qm = 2);
+ 12. small inputs of DlsimFading (25 PRB, batch 4, 30 dB: dd 1x2 over 4
+     HARQ rounds, interp on AWGN, the time-domain ETU channel, EVA at
+     200 Hz, the AR(1) fade over 2 rounds, perfect CE 1x2) and DlsimAwgn,
+     card against CPU on the same draws: every round's TB flags, DCI flags
+     and bit errors must be equal;
+ 13. the corpus receiver at full width: DlsimFading 100 PRB, MCS 26, EVA,
+     1x2 MRC, dd, CFI 2, 4 HARQ rounds, dlsim SNR convention, batch 128,
+     8 steps at 14.6 dB: round-0 BLER in [0.02, 0.98], fewer errors in
+     round 1 than 0, at most 1 % DCI misses, both kernels launched;
+ 14. the SISO fidelity anchors of tests/test_bler_anchor.py and
+     tests/test_fading.py, fading corpus tests 6 and 11 and the Doppler
+     corpus point, with the reference's configurations, trial counts and
+     bands (the JAX anchors were taken on a TPU);
+ 15. DlsimAwgn at bench.py's second configuration (BLER at most 0.01 at
+     1 dB) and the dlsim command line on the card (-g EVA -r 4, -x 2),
+     each writing a reference-schema CSV under build/.
 Each path is driven with the launch counts set to 0 just before it and
 read just after; every kernel must have launched on its path (v1, which
-no path runs, in its own timed run). Ends with a
-JSON line of the kernels, then the device JSON line. It needs a CUDA
-device and imports nothing of JAX.
+no path runs, in its own timed run). Each phase prints its seconds. Ends
+with a JSON line of the kernels, then the device JSON line. It needs a
+CUDA device and imports nothing of JAX.
 """
 import json
+import os
 import re
 import subprocess
 import sys
@@ -57,7 +76,10 @@ from openair4g_tpu_torch.ops.turbo_cuda import (half_iteration,
                                                 half_iteration_ref,
                                                 prep_parity)
 from openair4g_tpu_torch.phy.control_region import make_control_region_map
-from openair4g_tpu_torch.sim.dlsim import DlsimFading, DlsimFadingConfig
+from openair4g_tpu_torch.phy.resource_grid import make_grid_map
+from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
+                                           DlsimFading, DlsimFadingConfig)
+from openair4g_tpu_torch.sim.harness import dlsim_main
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 
@@ -159,8 +181,8 @@ def check_small_input(dev) -> None:
     taps = torch.randn(4, 1, 1, sims["cpu"].chan.n_taps, 2, generator=gen)
     noise = torch.randn(4, 1, sims["cpu"].fp.samples_per_tti, 2,
                         generator=gen)
-    res = {d: s.round0(tb, taps, noise, n0, s.wiener(snr), s.err_var(snr))
-           for d, s in sims.items()}
+    res = {d: s.trial(tb, [taps], [noise], n0, s.wiener(snr),
+                      s.err_var(snr)).rounds[0] for d, s in sims.items()}
     cpu, gpu = res["cpu"], res[dev]
     for field in ("ok", "dci_ok", "bit_errs"):
         a, b = getattr(cpu, field), getattr(gpu, field).cpu()
@@ -190,7 +212,7 @@ def flagship(dev) -> dict:
 
     sim = DlsimFading(cfg, device=dev)
     n0 = 10.0 ** (-26.0 / 10.0)
-    r = sim.step(gen, n0, sim.wiener(26.0), sim.err_var(26.0))
+    r = sim.step(gen, n0, sim.wiener(26.0), sim.err_var(26.0)).rounds[0]
     torch.cuda.synchronize()
     n_ok, n_dci = int(r.ok.sum()), int(r.dci_ok.sum())
     print(f"flagship 26 dB: {n_ok}/{BATCH} TBs, {n_dci}/{BATCH} DCIs, "
@@ -206,7 +228,7 @@ def flagship(dev) -> dict:
     n_rep = 10
     errs = trials = 0
     t0 = time.perf_counter()
-    oks = [sim.step(gen, n0, W, ev).ok for _ in range(n_rep)]
+    oks = [sim.step(gen, n0, W, ev).rounds[0].ok for _ in range(n_rep)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     for ok in oks:
@@ -431,6 +453,291 @@ def tm3_full_width(dev) -> int:
     return counts["demap_llr"]
 
 
+def check_mrc_a2(dev, gen) -> dict:
+    """mrc_llr at A = 2 on the 1x2 path's full-width shapes: 100 PRB at
+    CFI 2 (13,800 data REs, 1,980 PDCCH REs), batch 128; data Qm = 6 with
+    per-RE n0, PDCCH Qm = 2 with scalar n0."""
+    n_data = make_grid_map(100, 2).n_data_re
+    n_pdcch = make_control_region_map(100, 2).n_cce * 36
+    out, worst = {}, 0.0
+    for name, Qm, n_re, per_re in (("1x2 PDSCH", 6, n_data, True),
+                                   ("1x2 PDCCH", 2, n_pdcch, False)):
+        y, H = (torch.view_as_complex(torch.randn(BATCH, n_re, 2, 2,
+                                                  generator=gen, device=dev))
+                for _ in range(2))
+        n0 = 0.01 + torch.rand(n_re, generator=gen, device=dev) if per_re \
+            else 0.05
+        got = mrc_llr(y, H, n0, Qm)
+        want = mrc_llr_ref(y, H, n0, Qm)
+        torch.cuda.synchronize()
+        err, ratio = _worst_ratio(got, want, MRC_RTOL, MRC_ATOL)
+        ms = _time_ms(lambda: mrc_llr(y, H, n0, Qm), 50)
+        plain = _time_ms(lambda: mrc_llr_ref(y, H, n0, Qm), 5)
+        print(f"mrc_llr {name} A=2 Qm={Qm} REs={BATCH * n_re}: max|diff| "
+              f"{err:.3g}, max |diff|/(atol+rtol|ref|) {ratio:.3g} (must be "
+              f"<= 1); kernel {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
+        if not ratio <= 1.0:
+            raise AssertionError(f"mrc_llr {name} A=2 disagrees: {ratio}")
+        worst = max(worst, err)
+        if name == "1x2 PDSCH":
+            out = {"a2_ms": ms, "a2_plain_ms": plain}
+    out["a2_max_abs_err"] = worst
+    return out
+
+
+def _on(x, dev):
+    """The estimator state (a tensor or a pair) on `dev`."""
+    return tuple(t.to(dev) for t in x) if isinstance(x, tuple) else x.to(dev)
+
+
+_SMALL_SISO = [("dd 1x2, 4 rounds", dict(mcs=16, channel="EVA", n_rx=2,
+                                         est_mode="dd", n_harq_rounds=4)),
+               ("interp AWGN", dict(mcs=16, channel="AWGN",
+                                    n_harq_rounds=1)),
+               ("time-domain ETU", dict(mcs=10, channel="ETU",
+                                        time_domain_channel=True,
+                                        n_harq_rounds=1)),
+               ("EVA 200 Hz interp", dict(mcs=10, channel="EVA",
+                                          intra_doppler_hz=200.0,
+                                          n_harq_rounds=1)),
+               ("harq_doppler 10 Hz, 2 rounds",
+                dict(mcs=10, channel="EVA", harq_doppler_hz=10.0,
+                     est_mode="joint", n_harq_rounds=2)),
+               ("perfect CE 1x2", dict(mcs=16, channel="EVA", n_rx=2,
+                                       perfect_ce=True, n_harq_rounds=1))]
+
+
+def _equal_on_card_and_cpu(name, cpu, gpu) -> None:
+    for field in ("ok", "dci_ok", "bit_errs"):
+        a, b = getattr(cpu, field), getattr(gpu, field).cpu()
+        if not torch.equal(a, b):
+            raise AssertionError(f"small {name}: {field} {a} (CPU) vs {b}")
+
+
+def check_small_siso(dev) -> None:
+    """25 PRB, batch 4, 30 dB, decoder window 240 on both sides: each
+    DlsimFading mode of this slice and DlsimAwgn, card (kernels) against
+    CPU (plain versions) on the same draws and estimator state, every
+    round's TB flags, DCI flags and bit errors."""
+    B, snr = 4, 30.0
+    n0 = 10.0 ** (-snr / 10.0)
+    for name, case in _SMALL_SISO:
+        cfg = DlsimFadingConfig(n_rb=25, batch=B, n_turbo_iter=4,
+                                decoder_window=240, **case)
+        cpu, gpu = DlsimFading(cfg, device="cpu"), DlsimFading(cfg, device=dev)
+        draws = cpu.draw(torch.Generator().manual_seed(17))
+        W, ev = cpu.wiener(snr), cpu.err_var(snr)
+        a = cpu.trial(*draws, n0, W, ev)
+        b = gpu.trial(*draws, n0, _on(W, dev), ev.to(dev))
+        for r, (ra, rb) in enumerate(zip(a.rounds, b.rounds)):
+            _equal_on_card_and_cpu(f"{name} round {r}", ra, rb)
+        if not (torch.equal(a.errs, b.errs.cpu())
+                and torch.equal(a.reach, b.reach.cpu())):
+            raise AssertionError(f"small {name}: errs/reach {a.errs} "
+                                 f"{a.reach} (CPU) vs {b.errs} {b.reach}")
+        if not bool(a.rounds[0].dci_ok.all()):
+            raise AssertionError(f"small {name}: a DCI was missed at {snr} dB")
+        print(f"small {name} 25 PRB B={B} at {snr} dB: round flags "
+              f"{[r.ok.tolist() for r in a.rounds]}, DCI flags and bit errors"
+              f" equal on card and CPU in every round", flush=True)
+    cfg = DlsimConfig(mcs=16, n_rb=25, batch=B, decoder_window=240)
+    cpu, gpu = DlsimAwgn(cfg, device="cpu"), DlsimAwgn(cfg, device=dev)
+    gen = torch.Generator().manual_seed(18)
+    tb = torch.randint(0, 2, (B, cpu.dlsch.cfg.tbs), generator=gen,
+                       dtype=torch.int32)
+    noise = torch.randn(B, cpu.fp.samples_per_tti, 2, generator=gen)
+    n0 = 10.0 ** (-11.0 / 10.0)
+    a, b = cpu.trial(tb, noise, n0), gpu.trial(tb, noise, n0)
+    _equal_on_card_and_cpu("DlsimAwgn", a, b)
+    print(f"small DlsimAwgn 25 PRB MCS 16 B={B} at 11 dB: ok {a.ok.tolist()},"
+          f" bit errors {a.bit_errs.tolist()} equal on card and CPU",
+          flush=True)
+
+
+def dd_full_width(dev) -> dict:
+    """The corpus receiver at 20 MHz: 100 PRB, MCS 26, EVA, 1x2 MRC, dd,
+    CFI 2, 4 HARQ rounds, dlsim SNR convention, batch 128, drawn on the
+    card; 8 steps at 14.6 dB (corpus test 11's SNR), moved in 1 dB steps
+    while round-0 BLER is outside [0.02, 0.98]."""
+    cfg = DlsimFadingConfig(mcs=26, n_rb=100, channel="EVA", n_rx=2,
+                            est_mode="dd", n_pdcch_symbols=2,
+                            n_harq_rounds=4, snr_convention="dlsim",
+                            batch=BATCH)
+    sim = DlsimFading(cfg, device=dev)
+    sim.run_snr(14.6, BATCH, seed=99)            # settle the allocator
+    torch.cuda.synchronize()
+    snr, tried = 14.6, []
+    while True:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        errs, reach = sim.run_snr(snr, 8 * BATCH, seed=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        bler = errs / np.maximum(reach, 1)
+        tried.append(snr)
+        if 0.02 <= bler[0] <= 0.98 or len(tried) == 4:
+            break
+        snr += 1.0 if bler[0] > 0.98 else -1.0
+    steps = 8
+    print(f"dd 1x2 100 PRB MCS 26 EVA CFI 2 4 rounds at {snr} dB (dlsim "
+          f"convention; tried {tried}): per-round BLER "
+          f"{[round(float(x), 4) for x in bler]} (errs {errs.tolist()}, "
+          f"reached {reach.tolist()}), round-0 DCI misses {sim.dci_miss}, "
+          f"{steps * BATCH / dt:.1f} TB trials/s, "
+          f"{steps * BATCH * cfg.n_harq_rounds / dt:.1f} processed "
+          f"subframes/s ({steps} steps of {BATCH} x {cfg.n_harq_rounds} "
+          f"rounds, {dt:.3f} s)", flush=True)
+    print(f"launches over the dd 1x2 runs: {counts}", flush=True)
+    if not 0.02 <= bler[0] <= 0.98:
+        raise AssertionError(f"dd 1x2 round-0 BLER {bler[0]} outside "
+                             "[0.02, 0.98]")
+    if not errs[1] < errs[0]:
+        raise AssertionError(f"dd 1x2: no HARQ gain {errs}")
+    if sim.dci_miss > 0.01 * reach[0]:
+        raise AssertionError(f"dd 1x2: {sim.dci_miss} DCI misses")
+    if min(counts["mrc_llr"], counts["turbo_half_iter"]) == 0:
+        raise AssertionError(f"a kernel of the dd 1x2 path never launched: "
+                             f"{counts}")
+    return counts
+
+
+# The SISO fidelity anchors (the JAX package's, taken on a TPU): name,
+# config, [(SNR, trials, round-0 band as a fraction of the trials)], and
+# the condition the later rounds' (errs, bler) must meet, if any.
+_ANCHORS = [
+    ("test_bler_anchor: MCS 4 estimated-CE waterfall",
+     dict(mcs=4, n_rb=25, channel="AWGN", n_harq_rounds=1),
+     [(-2.6, 256, (0.9, 1.0)), (-1.8, 256, (0.2, 0.8)),
+      (-1.0, 256, (0.0, 0.1))], None),
+    ("test_bler_anchor: MCS 4 perfect CE",
+     dict(mcs=4, n_rb=25, channel="AWGN", n_harq_rounds=1, perfect_ce=True),
+     [(0.6, 256, (0.0, 0.0))], None),
+    ("test_bler_anchor: corpus test 5, 6 PRB MCS 4 EVA 1x2 joint",
+     dict(mcs=4, n_rb=6, channel="EVA", n_pdcch_symbols=3, n_rx=2,
+          n_harq_rounds=2, snr_convention="dlsim", est_mode="joint"),
+     [(-1.6, 256, (0.05, 0.37))], lambda e, b: e[1] < e[0]),
+    ("test_bler_anchor: ETU HARQ ordering, 6 PRB MCS 10 1x2 joint",
+     dict(mcs=10, n_rb=6, channel="ETU", n_pdcch_symbols=3, n_rx=2,
+          n_harq_rounds=4, snr_convention="dlsim", est_mode="joint"),
+     [(-4.0, 256, (0.6, 1.0))],
+     lambda e, b: b[1] < b[0] and b[2] < b[1] and e[3] <= e[2]),
+] + [(f"test_bler_anchor: AWGN ladder MCS {m}",
+      dict(mcs=m, n_rb=25, channel="AWGN", n_harq_rounds=1,
+           est_mode="interp", snr_convention="dlsim"),
+      [(lo, 256, (0.8, 1.0)), (mid, 256, (0.15, 0.85)),
+       (hi, 256, (0.0, 0.12))], None)
+     for m, lo, mid, hi in ((2, -4.4, -4.0, -3.4), (9, 1.7, 2.0, 2.3),
+                            (13, 4.7, 5.0, 5.3), (17, 8.1, 8.4, 8.8),
+                            (21, 10.9, 11.2, 11.6), (27, 15.5, 15.8, 16.3))
+] + [
+    ("test_fading: HARQ gain, 6 PRB MCS 10 EVA, 3 rounds",
+     dict(mcs=10, n_rb=6, channel="EVA", batch=32, n_turbo_iter=4,
+          n_harq_rounds=3),
+     [(6.0, 64, (0.0, 1.0))],
+     lambda e, b: b[1] < b[0] and (b[2] <= b[1] + 0.1 or e[-1] <= 1)),
+    ("test_fading: dd corpus anchor, 50 PRB MCS 26 EVA 1x2 (ref 0.337)",
+     dict(mcs=26, n_rb=50, channel="EVA", n_pdcch_symbols=2, n_rx=2,
+          n_harq_rounds=1, snr_convention="dlsim", est_mode="dd"),
+     [(14.6, 256, (0.0, 0.427))], None),
+    ("fading corpus test 6, 50 PRB MCS 15 EVA 1x2 dd (JAX 942/2048)",
+     dict(mcs=15, n_rb=50, channel="EVA", n_pdcch_symbols=2, n_rx=2,
+          n_harq_rounds=4, snr_convention="dlsim", est_mode="dd"),
+     [(4.6, 2048, (0.409, 0.511))], None),
+    ("fading corpus test 11, 50 PRB MCS 26 EVA 1x2 dd (JAX 683/2048)",
+     dict(mcs=26, n_rb=50, channel="EVA", n_pdcch_symbols=2, n_rx=2,
+          n_harq_rounds=4, snr_convention="dlsim", est_mode="dd"),
+     [(14.6, 2048, (0.285, 0.382))], None),
+    ("Doppler corpus, 25 PRB MCS 10 EVA 200 Hz interp (JAX 524/4096)",
+     dict(mcs=10, n_rb=25, channel="EVA", n_harq_rounds=1,
+          intra_doppler_hz=200.0, n_turbo_iter=6, batch=256),
+     [(8.0, 2048, (0.098, 0.158))], None),
+]
+
+
+def fidelity_anchors(dev) -> None:
+    """Every SISO anchor of the JAX package's tests and corpus campaigns,
+    with the same configurations, trial counts and bands, on the card
+    (batch 128 unless the anchor's campaign used another)."""
+    for name, case, points, later in _ANCHORS:
+        cfg = DlsimFadingConfig(**{"batch": BATCH, **case})
+        sim = DlsimFading(cfg, device=dev)
+        t0 = time.perf_counter()
+        txt = []
+        for snr, n, (lo, hi) in points:
+            errs, reach = sim.run_snr(snr, n, seed=0)
+            b0 = errs[0] / reach[0]
+            txt.append(f"{snr} dB r0 {b0:.4f} ({errs[0]}/{reach[0]}) in "
+                       f"[{lo}, {hi}]")
+            if not (reach[0] == n and lo <= b0 <= hi):
+                raise AssertionError(f"{name} at {snr} dB: round-0 BLER "
+                                     f"{b0} ({errs}/{reach}) outside "
+                                     f"[{lo}, {hi}]")
+            if cfg.n_harq_rounds > 1:
+                bler = errs / np.maximum(reach, 1)
+                txt[-1] += f", rounds {[round(float(x), 4) for x in bler]}"
+                if later is not None and not later(errs, bler):
+                    raise AssertionError(f"{name}: later rounds {errs} "
+                                         f"of {reach}")
+        print(f"anchor {name}: {'; '.join(txt)}; DCI misses {sim.dci_miss}"
+              f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def entry_point(dev) -> int:
+    """DlsimAwgn at bench.py's second configuration (25 PRB, MCS 4, batch
+    512, 8 iterations, 1 dB), then the dlsim command line on the card for
+    -g EVA -r 4 and for -x 2, each writing its CSV under build/."""
+    sim = DlsimAwgn(DlsimConfig(mcs=4, n_rb=25, batch=512, n_turbo_iter=8),
+                    device=dev)
+    sim.run_snr(1.0, 512, seed=9)                # settle the allocator
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    errs, trials = sim.run_snr(1.0, 4 * 512, seed=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_turbo = launch_counts()["turbo_half_iter"]
+    print(f"DlsimAwgn 25 PRB MCS 4 at 1 dB: BLER {errs / trials:.4f} "
+          f"({errs}/{trials}), {trials / dt:.1f} subframes/s (4 steps of "
+          f"512, {dt:.3f} s), turbo launches {n_turbo}", flush=True)
+    if errs > 0.01 * trials or n_turbo == 0:
+        raise AssertionError(f"DlsimAwgn: BLER {errs}/{trials}, turbo "
+                             f"launches {n_turbo}")
+    os.makedirs("build", exist_ok=True)
+    for argv, n_pairs in ((["-g", "EVA", "-r", "4", "-m", "10", "-B", "25",
+                            "-s", "6", "-S", "8", "-i", "2"], 4),
+                          (["-x", "2", "-m", "10", "-B", "25", "-s", "8",
+                            "-S", "8"], 1)):
+        path = f"build/dlsim_{'x2' if '-x' in argv else 'eva'}.csv"
+        rows = dlsim_main(argv + ["-n", "256", "-b", "128", "-o", path,
+                                  "--device", "cuda"])
+        with open(path) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            cols = line.split(";")
+            if len(cols) != 4 + 2 * n_pairs + 1 or cols[1] != "10" \
+                    or int(cols[5]) != 256:
+                raise AssertionError(f"{path}: row {line!r} is not "
+                                     f"SNR;MCS;TBS;rate;(err;trials)x"
+                                     f"{n_pairs};dci_err")
+        if len(lines) != len(rows) or not lines:
+            raise AssertionError(f"{path}: {len(lines)} rows for "
+                                 f"{len(rows)} sweep points")
+        print(f"dlsim {' '.join(argv)} --device cuda: {path} "
+              f"{lines}", flush=True)
+    return n_turbo
+
+
+def _phase(n: int, title: str, fn, *args):
+    """Run one phase, with its number, title and seconds printed."""
+    print(f"== phase {n}: {title}", flush=True)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"== phase {n} done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's check needs one")
@@ -458,20 +765,28 @@ def main() -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    turbo = check_turbo(dev, gen)
-    mrc = check_mrc(dev, gen)
-    check_small_input(dev)
-    counts = flagship(dev)
-    demap = check_demap(dev, gen)
-    turbo_v1, n_v1 = check_turbo_v1(dev, gen)
-    check_small_mimo(dev)
-    n_demap = tm2_anchor(dev) + tm3_full_width(dev)
+    turbo = _phase(3, "turbo v2 kernel", check_turbo, dev, gen)
+    mrc = _phase(3, "mrc_llr kernel", check_mrc, dev, gen)
+    _phase(4, "small input, card against CPU", check_small_input, dev)
+    counts = _phase(5, "flagship", flagship, dev)
+    demap = _phase(6, "demap_llr kernel", check_demap, dev, gen)
+    turbo_v1, n_v1 = _phase(7, "turbo v1 kernel", check_turbo_v1, dev, gen)
+    _phase(8, "small multi-antenna inputs", check_small_mimo, dev)
+    n_demap = _phase(9, "TM2 anchor", tm2_anchor, dev) \
+        + _phase(10, "TM3 full width", tm3_full_width, dev)
+    mrc.update(_phase(11, "mrc_llr at A = 2", check_mrc_a2, dev, gen))
+    _phase(12, "small SISO inputs, card against CPU", check_small_siso, dev)
+    dd = _phase(13, "dd 1x2 HARQ full width", dd_full_width, dev)
+    _phase(14, "SISO fidelity anchors", fidelity_anchors, dev)
+    n_awgn_turbo = _phase(15, "DlsimAwgn and the dlsim command line",
+                          entry_point, dev)
 
     rows = [
         dict(name="turbo_half_iter", route="cuda",
              source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
              replaces="openair4g_tpu/ops/turbo_pallas.py:219",
-             launches=counts["turbo_half_iter"], **turbo),
+             launches=counts["turbo_half_iter"] + dd["turbo_half_iter"]
+             + n_awgn_turbo, **turbo),
         dict(name="turbo_half_iter_v1", route="cuda",
              source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
              replaces="openair4g_tpu/ops/turbo_pallas.py:70",
@@ -479,7 +794,7 @@ def main() -> None:
         dict(name="mrc_llr", route="cuda",
              source="openair4g_tpu_torch/csrc/mrc_llr.cu",
              replaces="openair4g_tpu/ops/equalize_llr.py:40",
-             launches=counts["mrc_llr"], **mrc),
+             launches=counts["mrc_llr"] + dd["mrc_llr"], **mrc),
         dict(name="demap_llr", route="cuda",
              source="openair4g_tpu_torch/csrc/mrc_llr.cu",
              replaces="openair4g_tpu/ops/equalize_llr.py:138",

@@ -17,6 +17,27 @@ _LAUNCHES = {"turbo_half_iter": 0, "turbo_half_iter_v1": 0, "mrc_llr": 0,
              "demap_llr": 0}
 
 
+# Static plans (index maps, tables) uploaded once per (host array, build,
+# device); the entry holds the host object, so its id stays its own.
+_PLANS: dict = {}
+
+
+def device_plan(host, device, build=None, dtype=None) -> torch.Tensor:
+    """`build(host)` (or `host` itself), a static plan built on the host,
+    as a tensor on `device`, uploaded on the first call only. `host` must
+    outlive the process's use of it (a module constant or what an
+    lru_cache returns), and `build` be a module-level function: a fresh
+    array on every call would fill the cache."""
+    dev = torch.device(device)
+    key = (id(host), build, str(dev), dtype)
+    hit = _PLANS.get(key)
+    if hit is None:
+        value = host if build is None else build(host)
+        hit = _PLANS[key] = (host, torch.as_tensor(value, dtype=dtype,
+                                                   device=dev))
+    return hit[1]
+
+
 def default_device() -> torch.device:
     """`cuda` when a card is present, else `cpu` (the CPU serves the tests)."""
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")

@@ -11,6 +11,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import device_plan
+
 _GENS = (0o133, 0o171, 0o165)
 N_STATES = 64
 
@@ -66,14 +68,17 @@ def conv_encode_host(bits: np.ndarray) -> np.ndarray:
     return d
 
 
+def _signs(bits: np.ndarray) -> np.ndarray:
+    return 1.0 - 2.0 * bits.astype(np.float32)
+
+
 def viterbi_decode(llrs, K: int, n_wrap: int = 3):
     """Circular Viterbi decode. llrs [B, 3, K] float (positive <=> bit 0)
     -> hard decisions [B, K] int8. Ties pick the lower predecessor and the
     lowest final state, as the reference's argmax does."""
     B = llrs.shape[0]
     dev = llrs.device
-    sign = torch.as_tensor(1.0 - 2.0 * _pred_outputs().astype(np.float32),
-                           device=dev)                        # [64, 2, 3]
+    sign = device_plan(_pred_outputs(), dev, _signs)           # [64, 2, 3]
     x = llrs.to(torch.float32).repeat(1, 1, n_wrap)           # [B, 3, T]
     T = n_wrap * K
     xt = x.permute(2, 0, 1)[:, :, None, None, :]              # [T, B, 1, 1, 3]

@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import device as _device  # noqa: F401  (sets full-f32 matmuls)
+from ..device import device_plan  # (importing it sets full-f32 matmuls)
 
 # Polynomial bit vectors, MSB (x^L) first, per 36.212 §5.1.1.
 CRC_POLYS = {
@@ -60,8 +60,9 @@ def crc_matrix(K: int, kind: str) -> np.ndarray:
 
 
 def crc_remainder(bits, H: np.ndarray):
-    """bits [..., K] in {0,1} -> remainder [..., L] as float32 {0., 1.}."""
-    Ht = torch.as_tensor(H, dtype=torch.float32, device=bits.device)
+    """bits [..., K] in {0,1} -> remainder [..., L] as float32 {0., 1.}.
+    H: a crc_matrix (cached, so it is uploaded once per device)."""
+    Ht = device_plan(H, bits.device, dtype=torch.float32)
     return torch.remainder(bits.to(torch.float32) @ Ht, 2.0)
 
 

@@ -9,7 +9,7 @@ import torch
 from .. import kernels
 from ..device import count_launch
 from ..phy.equalize import mrc_equalize
-from .llr import demap_llr
+from .llr import as_f32, demap_llr
 
 
 def mrc_llr_ref(y, H, n0_total, Qm: int):
@@ -23,7 +23,7 @@ def _n0_operand(n0_total, lead: tuple, device):
     leading shape: a scalar (period 1), a tensor equal to the trailing
     leading dims (broadcast over the rest without copying), or anything
     else broadcastable (materialized to the full leading shape)."""
-    n0 = torch.as_tensor(n0_total, dtype=torch.float32, device=device)
+    n0 = as_f32(n0_total, device)
     while n0.dim() and n0.shape[0] == 1:
         n0 = n0[0]
     if n0.dim() <= len(lead) and tuple(n0.shape) == lead[len(lead) - n0.dim():]:

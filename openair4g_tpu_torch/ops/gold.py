@@ -9,6 +9,8 @@ import functools
 import numpy as np
 import torch
 
+from ..device import device_plan
+
 _NC = 1600
 
 
@@ -37,13 +39,16 @@ def pdsch_cinit(rnti: int, q: int, ns: int, nid_cell: int) -> int:
 
 
 def scramble_bits(bits, seq: np.ndarray):
-    """bits [B, E] {0,1} XOR the per-position sequence [E]."""
-    return torch.bitwise_xor(
-        bits, torch.as_tensor(seq, device=bits.device).to(bits.dtype))
+    """bits [B, E] {0,1} XOR the per-position sequence [E] (a simulator's
+    own, uploaded once per device)."""
+    return torch.bitwise_xor(bits, device_plan(seq, bits.device).to(
+        bits.dtype))
 
 
 def unscramble_llrs(llrs, seq: np.ndarray):
     """LLR-domain descrambling: flip the sign where c(n) = 1."""
-    sgn = torch.as_tensor(1.0 - 2.0 * seq.astype(np.float32),
-                          device=llrs.device)
-    return llrs * sgn
+    return llrs * device_plan(seq, llrs.device, _signs)
+
+
+def _signs(seq: np.ndarray) -> np.ndarray:
+    return 1.0 - 2.0 * seq.astype(np.float32)

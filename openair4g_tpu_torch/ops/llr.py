@@ -10,6 +10,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import device_plan
 from ..tables.modulation import mod_table
 
 
@@ -55,21 +56,36 @@ def _pam_levels(Qm: int):
             np.asarray(bit_patterns, np.int8).T)
 
 
+def as_f32(x, device) -> torch.Tensor:
+    """x (a tensor, array or number) as float32 on `device`; a number is
+    filled on the device, with no host-to-device copy."""
+    if torch.is_tensor(x):
+        return x.to(device, torch.float32)
+    if np.ndim(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def _is_zero(bits: np.ndarray) -> np.ndarray:
+    return bits == 0
+
+
 def demap_llr(y, N0, Qm: int):
     """Exact max-log LLRs. y [...] complex equalized symbols, N0 scalar or
     broadcastable to y.shape. Returns [..., Qm] float32, bit order
     b0..b{Qm-1}."""
     levels, bit_of_level = _pam_levels(Qm)
-    lv = torch.as_tensor(levels, device=y.device)
+    lv = device_plan(levels, y.device)
+    zero = device_plan(bit_of_level, y.device, _is_zero)      # [nb, L]
     nb = Qm // 2
-    N0t = torch.as_tensor(N0, dtype=torch.float32, device=y.device)
+    N0t = as_f32(N0, y.device)
     inv_n0 = 1.0 / (N0t[..., None] if N0t.dim() else N0t)
     out = []
     for axis_val in (y.real, y.imag):
         metric = -((axis_val[..., None] - lv) ** 2) * inv_n0      # [..., L]
         axis_llrs = []
         for b in range(nb):
-            mask0 = torch.as_tensor(bit_of_level[b] == 0, device=y.device)
+            mask0 = zero[b]
             m0 = metric[..., mask0].max(dim=-1).values
             m1 = metric[..., ~mask0].max(dim=-1).values
             axis_llrs.append(m0 - m1)

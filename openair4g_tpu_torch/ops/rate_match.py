@@ -15,6 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import device_plan
+
 # 36.212 Table 5.1.4-1 inter-column permutation pattern for C_TC = 32.
 PERM32 = np.array([0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22, 14, 30,
                    1, 17, 9, 25, 5, 21, 13, 29, 3, 19, 11, 27, 7, 23, 15, 31],
@@ -157,12 +159,18 @@ def _fold(e_llr, L: int):
         else e_llr.reshape(B, L)
 
 
+def _order_idx(d_from_order: np.ndarray) -> np.ndarray:
+    return np.where(d_from_order >= 0, d_from_order, 0)
+
+
+def _order_mask(d_from_order: np.ndarray) -> np.ndarray:
+    return (d_from_order >= 0).astype(np.float32)
+
+
 def _order_to_d(folded, d_from_order: np.ndarray):
-    idx = torch.as_tensor(np.where(d_from_order >= 0, d_from_order, 0),
-                          dtype=torch.long, device=folded.device)
-    mask = torch.as_tensor((d_from_order >= 0).astype(np.float32),
-                           device=folded.device)
-    return folded[:, idx] * mask
+    dev = folded.device
+    idx = device_plan(d_from_order, dev, _order_idx, torch.long)
+    return folded[:, idx] * device_plan(d_from_order, dev, _order_mask)
 
 
 def cc_rate_match_rx(e_llr, maps: CCRateMatchMaps):
@@ -173,8 +181,8 @@ def cc_rate_match_rx(e_llr, maps: CCRateMatchMaps):
 
 def rate_match_tx(d_flat, maps: RateMatchMaps):
     """d_flat [B, 3*(K+4)] -> e [B, E]. One gather."""
-    return d_flat[:, torch.as_tensor(maps.e_src, dtype=torch.long,
-                                     device=d_flat.device)]
+    return d_flat[:, device_plan(maps.e_src, d_flat.device,
+                                 dtype=torch.long)]
 
 
 def rate_match_rx(e_llr, maps: RateMatchMaps, w_soft=None):

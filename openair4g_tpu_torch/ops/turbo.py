@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import device_plan
 from ..tables.qpp import QPP_BY_K
 
 from .crc import crc_matrix, crc_remainder
@@ -41,8 +42,10 @@ def _trellis():
 NEXT_STATE, PARITY = _trellis()
 
 
+@functools.lru_cache(maxsize=None)
 def qpp_interleaver(K: int) -> np.ndarray:
-    """pi[j] = (f1*j + f2*j^2) mod K: decoder-2 position j reads input pi[j]."""
+    """pi[j] = (f1*j + f2*j^2) mod K: decoder-2 position j reads input pi[j]
+    (cached: one array per K, so its device copy is made once)."""
     f1, f2 = QPP_BY_K[K]
     j = np.arange(K, dtype=np.int64)
     return ((f1 * j + f2 * j * j) % K).astype(np.int32)
@@ -70,12 +73,21 @@ def _rsc_encode_scan(bits):
         z = z + torch.cat([P.new_zeros(B, r), P[:, :K - r]], dim=1)
     z = torch.remainder(z, 2)
     Pm = torch.remainder(Pc[:, M - 1, :], 2)                    # [B, 7]
-    s = torch.zeros(B, dtype=torch.int64, device=bits.device)
-    for val, residues in _STATE_RES.items():
-        sel = torch.tensor([1 if (K - c) % 7 in residues else 0
-                            for c in range(7)], device=bits.device)
-        s = s + val * torch.remainder((Pm * sel).sum(dim=1), 2)
+    vals, sel = _state_select(K % 7)
+    sel = device_plan(sel, bits.device)                         # [3, 7]
+    s = (torch.remainder((Pm[:, None, :] * sel).sum(dim=-1), 2)
+         * device_plan(vals, bits.device)).sum(dim=-1)
     return z.to(torch.int32), s
+
+
+@functools.lru_cache(maxsize=None)
+def _state_select(k_mod7: int):
+    """(state bit values [3], residue-class selectors [3, 7]) for K with
+    K mod 7 = k_mod7: state bit b is the parity of the classes selected."""
+    vals = np.asarray(list(_STATE_RES), np.int64)
+    sel = np.asarray([[1 if (k_mod7 - c) % 7 in res else 0 for c in range(7)]
+                      for res in _STATE_RES.values()], np.int64)
+    return vals, sel
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,10 +110,10 @@ def turbo_encode_device(bits, pi: np.ndarray):
     B, K = bits.shape
     dev = bits.device
     bits = bits.to(torch.int32)
-    bits2 = bits[:, torch.as_tensor(pi, dtype=torch.long, device=dev)]
+    bits2 = bits[:, device_plan(pi, dev, dtype=torch.long)]
     z1f, s1 = _rsc_encode_scan(bits)
     z2f, s2 = _rsc_encode_scan(bits2)
-    tx, tz = (torch.as_tensor(t, device=dev) for t in _tail_tables())
+    tx, tz = (device_plan(t, dev) for t in _tail_tables())
     x1 = torch.cat([bits, tx[s1]], dim=1)
     z1 = torch.cat([z1f, tz[s1]], dim=1)
     x2 = torch.cat([bits2, tx[s2]], dim=1)
@@ -117,13 +129,14 @@ def turbo_encode_device(bits, pi: np.ndarray):
 
 def _permute(x, K: int, inverse: bool):
     """QPP (de)interleave as a gather: y[:, j] = x[:, pi[j]] (or inverse)."""
-    pi = qpp_interleaver(K)
-    if inverse:
-        idx = np.empty(K, np.int64)
-        idx[pi] = np.arange(K)
-    else:
-        idx = pi
-    return x[:, torch.as_tensor(idx, dtype=torch.long, device=x.device)]
+    return x[:, device_plan(qpp_interleaver(K), x.device,
+                            _inverse_perm if inverse else None, torch.long)]
+
+
+def _inverse_perm(pi: np.ndarray) -> np.ndarray:
+    idx = np.empty(len(pi), np.int64)
+    idx[pi] = np.arange(len(pi))
+    return idx
 
 
 @dataclass(frozen=True)

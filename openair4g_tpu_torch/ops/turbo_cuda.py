@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..device import count_launch
+from ..device import count_launch, device_plan
 
 NEG = -1e9
 BIG = 1e4
@@ -77,7 +77,7 @@ def half_iteration_ref(lin, lp, W: int, U: int):
     gum, guw, gut = frames(0.5 * lin)
     gpm, gpw, gpt = frames(0.5 * lp)
     n0, n1, p0, p1, sz0, su_p, sz_p = (
-        torch.tensor(t, device=dev) for t in _TABLES)
+        device_plan(t, dev) for t in _TABLES)
     sz0, su_p, sz_p = (x.float()[:, None] for x in (sz0, su_p, sz_p))
 
     def norm(x):
@@ -210,7 +210,7 @@ def half_iteration_prepped_ref(lin, gpf, gpb, W: int, U: int):
     guf, gub = _frames(0.5 * lin, W, U, BIG)
     win0 = torch.arange(B * n_w, device=dev) % n_w == 0
     n0, n1, p0, p1, sz0, su_p, sz_p = (
-        torch.tensor(t, device=dev) for t in _TABLES)
+        device_plan(t, dev) for t in _TABLES)
     sz0, su_p, sz_p = (x.float()[:, None] for x in (sz0, su_p, sz_p))
 
     def norm(x):

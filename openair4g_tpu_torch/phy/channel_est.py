@@ -1,12 +1,13 @@
 """Downlink channel estimation from the cell-specific RS (counterpart of
 openair4g_tpu/phy/channel_est.py): the joint 2D-LMMSE estimator over all
-pilots of the subframe, and the per-pilot-symbol Wiener estimator with
-time averaging or linear time interpolation, per antenna port.
+pilots of the subframe, the per-pilot-symbol Wiener estimator with time
+averaging or linear time interpolation, per antenna port, and the
+decision-directed second pass over the detected data REs.
 
-The estimator matrices, the joint estimator's posterior error variance and
-the measured delay prior are host-side numpy (copied from the reference,
-whose module imports jax); on the device each estimate is complex matmuls
-of the least-squares pilot estimates with those matrices.
+The estimator matrices, posterior error variances and delay priors are
+host-side numpy (copied from the reference, whose module imports jax); on
+the device each estimate is complex matmuls of least-squares estimates
+with those matrices, and the pilot plans are uploaded once per device.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import FrameParms
+from ..device import device_plan
 from .resource_grid import GridMap, pilot_symbol_indices
 
 
@@ -99,20 +101,31 @@ def estimate_channel(rgrid, gm: GridMap, wiener_stack, time_avg: bool = False,
     rgrid's device); then the mean over the pilot symbols (time_avg, the
     quasi-static mode) or linear interpolation between them."""
     fp = gm.fp
-    dev = rgrid.device
-    pilot_sym, _, pilot_bin, pilot_val = _port_pilot_arrays(gm, port)
-    sym = torch.as_tensor(pilot_sym, dtype=torch.long, device=dev)
-    bins = torch.as_tensor(pilot_bin, dtype=torch.long, device=dev)
-    ref = torch.as_tensor(np.conj(pilot_val).astype(np.complex64), device=dev)
-    ls = rgrid[:, sym, bins] * ref                        # [B, n_ps, Np]
+    p = _pilot_tensors(gm, port, rgrid.device)
+    ls = rgrid[:, p["sym"], p["bin"]] * p["ref"]          # [B, n_ps, Np]
     h_p = torch.einsum("bpn,pnk->bpk", ls, wiener_stack)  # [B, n_ps, n_sc]
     B, n_sc = h_p.shape[0], h_p.shape[-1]
     if time_avg:
         return h_p.mean(dim=1, keepdim=True).expand(
             B, fp.symbols_per_subframe, n_sc)
-    Wt = torch.as_tensor(_time_interp_weights(fp.n_rb, fp.normal_cp),
-                         dtype=torch.complex64, device=dev)
-    return torch.einsum("sp,bpk->bsk", Wt, h_p)
+    return torch.einsum("sp,bpk->bsk", p["time_interp"], h_p)
+
+
+@functools.lru_cache(maxsize=None)
+def _pilot_tensors(gm: GridMap, port: int, device) -> dict:
+    """Port `port`'s pilot plan on `device`, uploaded once: symbol and FFT
+    bin [n_ps, Np], conjugated reference values, and the linear
+    time-interpolation weights [nsym, n_ps]."""
+    pilot_sym, _, pilot_bin, pilot_val = _port_pilot_arrays(gm, port)
+    fp = gm.fp
+    return {
+        "sym": torch.as_tensor(pilot_sym, dtype=torch.long, device=device),
+        "bin": torch.as_tensor(pilot_bin, dtype=torch.long, device=device),
+        "ref": torch.as_tensor(np.conj(pilot_val).astype(np.complex64),
+                               device=device),
+        "time_interp": torch.as_tensor(
+            _time_interp_weights(fp.n_rb, fp.normal_cp),
+            dtype=torch.complex64, device=device)}
 
 
 def _comb_offsets(gm: GridMap, port: int) -> tuple:
@@ -194,13 +207,137 @@ def estimate_channel_joint(rgrid, gm: GridMap, wiener_joint, port: int = 0):
     all pilots of the subframe, broadcast over symbols. `wiener_joint`:
     complex64 [Np_total, n_sc] tensor on rgrid's device."""
     fp = gm.fp
-    dev = rgrid.device
-    pilot_sym, _, pilot_bin, pilot_val = _port_pilot_arrays(gm, port)
-    sym = torch.as_tensor(pilot_sym.reshape(-1), dtype=torch.long, device=dev)
-    bins = torch.as_tensor(pilot_bin.reshape(-1), dtype=torch.long,
-                           device=dev)
-    ref = torch.as_tensor(np.conj(pilot_val.reshape(-1)).astype(np.complex64),
-                          device=dev)
-    ls = rgrid[:, sym, bins] * ref                        # [B, Np_total]
+    p = _pilot_tensors(gm, port, rgrid.device)
+    ls = rgrid[:, p["sym"].reshape(-1), p["bin"].reshape(-1)] \
+        * p["ref"].reshape(-1)                            # [B, Np_total]
     h = ls @ wiener_joint
     return h[:, None].expand(h.shape[0], fp.symbols_per_subframe, h.shape[-1])
+
+
+def pdp_prior(fp: FrameParms, delays_us, amps, delay_scale: float = 1.0,
+              floor: float = 1e-4) -> np.ndarray:
+    """Delay-power prior from a channel's actual PDP: tap powers split
+    between the two nearest samples of the cp+2 support, plus a uniform
+    floor (the est_prior="pdp" genie bound)."""
+    L = fp.cp + 2
+    fs = fp.n_fft * 15000.0
+    P = np.full(L, floor, float)
+    a = np.asarray(amps, float)
+    a = a / a.sum()
+    for d_us, p in zip(np.asarray(delays_us, float), a):
+        pos = d_us * 1e-6 * delay_scale * fs
+        i = int(np.floor(pos))
+        frac = pos - i
+        if i + 1 < L:
+            P[i] += p * (1 - frac)
+            P[i + 1] += p * frac
+        elif i < L:
+            P[i] += p
+    return P / P.sum()
+
+
+# --------------------------------------- decision-directed second pass --
+# After a first-pass joint estimate, the detected data REs act as a dense
+# pilot field: LS at every data RE, accumulated per subcarrier together
+# with the pilots' LS, then one MMSE smoothing onto the delay subspace.
+
+_LV64 = np.float32(1.0 / np.sqrt(42.0))   # 64QAM level unit
+
+
+def qam_hard_slice(x, Qm: int):
+    """Nearest unit-energy 36.211 constellation point of each equalized
+    symbol, per axis."""
+    if Qm == 2:
+        lv = np.float32(1.0 / np.sqrt(2.0))
+        return torch.complex(torch.sign(x.real) * lv, torch.sign(x.imag) * lv)
+    if Qm == 4:
+        lv = np.float32(1.0 / np.sqrt(10.0))
+        two = float(np.float32(2 * (1.0 / np.sqrt(10.0))))
+
+        def axis(a):
+            return torch.sign(a) * torch.where(a.abs() > two, 3.0, 1.0)
+    else:
+        lv = _LV64
+
+        def axis(a):
+            m = a.abs() / device_plan(_LV64, a.device)
+            return torch.sign(a) * torch.where(
+                m > 6, 7.0, torch.where(m > 4, 5.0,
+                                        torch.where(m > 2, 3.0, 1.0)))
+    return torch.complex(axis(x.real) * lv, axis(x.imag) * lv)
+
+
+@functools.lru_cache(maxsize=None)
+def _dd_smoother_cached(n_rb: int, normal_cp: bool, n0: float,
+                        cnt_key: tuple, prior_key):
+    fp = FrameParms(n_rb=n_rb, normal_cp=normal_cp)
+    taps = np.arange(fp.cp + 2)
+    Fd = np.exp(-2j * np.pi * _signed_freq_idx(fp, np.arange(fp.n_sc))[:, None]
+                * taps[None, :] / fp.n_fft)
+    P = (_delay_prior(fp) if prior_key is None
+         else np.asarray(prior_key, float))
+    Rhh = (Fd * P) @ Fd.conj().T
+    cnt = np.asarray(cnt_key, float)
+    A = Rhh + np.diag(n0 / np.maximum(cnt, 1e-6))
+    W = Rhh @ np.linalg.inv(A)
+    post = float(np.sum(P)) - np.einsum("kp,kp->k", W, Rhh.conj()).real
+    return (np.stack([W.real, W.imag], -1).astype(np.float32),
+            np.maximum(post, 0.0).astype(np.float32))
+
+
+def make_dd_smoother(gm: GridMap, n0: float, prior=None):
+    """-> (W [n_sc, n_sc, 2] float32 re/im-packed MMSE smoother over the
+    dense decision-directed LS field, err_var [n_sc] its posterior). The
+    number of data REs on each subcarrier sets that subcarrier's LS noise."""
+    cnt = np.bincount(gm.data_sc, minlength=gm.fp.n_sc)
+    pr = None if prior is None else tuple(np.asarray(prior, float).tolist())
+    return _dd_smoother_cached(gm.fp.n_rb, gm.fp.normal_cp, float(n0),
+                               tuple(int(c) for c in cnt), pr)
+
+
+@functools.lru_cache(maxsize=None)
+def _dd_positions(gm: GridMap, port: int, device) -> tuple:
+    """Flat (symbol, subcarrier) positions in a [nsym * n_sc] field of the
+    data REs and of port `port`'s pilots; no two coincide."""
+    n_sc = gm.fp.n_sc
+    psym, psc, _, _ = _port_pilot_arrays(gm, port)
+    data = gm.data_sym.astype(np.int64) * n_sc + gm.data_sc
+    pilot = psym.reshape(-1).astype(np.int64) * n_sc + psc.reshape(-1)
+    return (torch.as_tensor(data, device=device),
+            torch.as_tensor(pilot, device=device))
+
+
+def dd_refine(y_data, s_hat, gm: GridMap, smoother, weight=None,
+              rgrid=None, port: int = 0):
+    """Decision-directed refinement: y_data, s_hat [B, n_data] -> H2
+    [B, n_sc], subframe-static like the joint estimator.
+
+    Per subcarrier, ls = sum(w y conj(s)) / sum(w |s|^2) over its data REs
+    (w: optional per-RE decision confidence), plus the pilots' LS at full
+    weight when `rgrid` is given; then H2 = ls @ smoother^T (`smoother`:
+    complex64 [n_sc, n_sc] on the device). The per-subcarrier sums are
+    formed by writing each RE's term into its own cell of a [B, nsym, n_sc]
+    field and summing over symbols: a fixed order, no atomics."""
+    fp = gm.fp
+    B, dev = y_data.shape[0], y_data.device
+    nsym, n_sc = fp.symbols_per_subframe, fp.n_sc
+    data_pos, pilot_pos = _dd_positions(gm, port, dev)
+    w = torch.ones_like(y_data.real) if weight is None else weight
+    num = y_data.new_zeros(B, nsym * n_sc)
+    den = w.new_zeros(B, nsym * n_sc)
+    num[:, data_pos] = w * y_data * torch.conj(s_hat)
+    den[:, data_pos] = w * s_hat.abs() ** 2
+    num = num.reshape(B, nsym, n_sc).sum(dim=1)
+    den = den.reshape(B, nsym, n_sc).sum(dim=1)
+    if rgrid is not None:
+        p = _pilot_tensors(gm, port, dev)
+        pls = rgrid[:, p["sym"].reshape(-1), p["bin"].reshape(-1)] \
+            * p["ref"].reshape(-1)
+        pnum = pls.new_zeros(B, nsym * n_sc)
+        pnum[:, pilot_pos] = pls
+        pden = den.new_zeros(nsym * n_sc)
+        pden[pilot_pos] = 1.0
+        num = num + pnum.reshape(B, nsym, n_sc).sum(dim=1)
+        den = den + pden.reshape(nsym, n_sc).sum(dim=0)
+    ls = num / torch.clamp(den, min=1e-9)
+    return ls @ smoother.T

@@ -10,6 +10,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import device_plan
 from ..tables.modulation import mod_table
 
 _EPS = 1e-12
@@ -55,6 +56,10 @@ def _joint_tables(qm0: int, qm1: int):
     return t0[i0].astype(np.complex64), t1[i1].astype(np.complex64), bit0
 
 
+def _is_zero(bits: np.ndarray) -> np.ndarray:
+    return bits == 0
+
+
 def dual_stream_llr(z0, rho, g0, n0, qm0: int, qm1: int, chunk: int = 512):
     """Exact max-log LLRs of layer 0 with layer 1 a constellation-constrained
     interferer. Model after matched filtering with h0:
@@ -64,10 +69,9 @@ def dual_stream_llr(z0, rho, g0, n0, qm0: int, qm1: int, chunk: int = 512):
     Chunked over N so the [B, chunk, J] joint metric stays bounded."""
     s0, s1, bit0 = _joint_tables(qm0, qm1)
     dev = z0.device
-    s0 = torch.as_tensor(s0, device=dev)
-    s1 = torch.as_tensor(s1, device=dev)
-    mask0 = torch.as_tensor(bit0 == 0, device=dev)         # [qm0, J]
-    neg_inf = torch.tensor(-float("inf"), device=dev)
+    s0, s1 = device_plan(s0, dev), device_plan(s1, dev)
+    mask0 = device_plan(bit0, dev, _is_zero)               # [qm0, J]
+    neg_inf = torch.full((), -float("inf"), device=dev)
     outs = []
     for start in range(0, z0.shape[1], chunk):
         z = z0[:, start:start + chunk]

@@ -5,12 +5,14 @@ rate matching to 72 L bits; the blind search decodes every candidate
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..device import device_plan
 from ..ops.convcode import conv_encode_host, viterbi_decode
 from ..ops.crc import crc_bits_host, crc_matrix, crc_remainder
 from ..ops.gold import gold_sequence
@@ -52,6 +54,7 @@ def pack_dci_format1a(n_rb_dl: int, rb_start: int, n_prb: int, mcs: int,
     return np.asarray(bits, np.int8)
 
 
+@functools.lru_cache(maxsize=None)
 def _rnti_bits(rnti: int) -> np.ndarray:
     return np.array([(rnti >> (15 - i)) & 1 for i in range(16)], np.int8)
 
@@ -132,7 +135,7 @@ def dci_blind_decode(llr_cces, payload_len: int, rnti: int,
                              crc_matrix(payload_len, "crc16"))
     expect = torch.remainder(
         bits[:, payload_len:].to(torch.float32)
-        + torch.as_tensor(_rnti_bits(rnti), dtype=torch.float32, device=dev),
+        + device_plan(_rnti_bits(rnti), dev, dtype=torch.float32),
         2.0)
     ok = torch.all(crc_calc == expect, dim=-1)
     ok_c = ok.reshape(len(candidates), B)

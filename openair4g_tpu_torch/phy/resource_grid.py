@@ -120,13 +120,25 @@ def fill_grid(symbols, gm: GridMap):
     with the cell-specific RS in place."""
     B = symbols.shape[0]
     fp = gm.fp
-    dev = symbols.device
+    plan = _grid_tensors(gm, symbols.device)
     symbols = symbols.to(torch.complex64)
-    pv = torch.as_tensor(gm.pilot_val.astype(np.complex64), device=dev)
-    src = torch.cat([symbols, pv.expand(B, -1), symbols.new_zeros(B, 1)],
-                    dim=1)
-    idx = torch.as_tensor(_fill_index(gm), device=dev)
-    return src[:, idx].reshape(B, fp.symbols_per_subframe, fp.n_fft)
+    src = torch.cat([symbols, plan["pilot_val"].expand(B, -1),
+                     symbols.new_zeros(B, 1)], dim=1)
+    return src[:, plan["fill"]].reshape(B, fp.symbols_per_subframe, fp.n_fft)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_tensors(gm: GridMap, device) -> dict:
+    """The map's fill and extract plans on `device`, uploaded once."""
+    return {"fill": torch.as_tensor(_fill_index(gm), device=device),
+            "pilot_val": torch.as_tensor(gm.pilot_val.astype(np.complex64),
+                                         device=device),
+            "data_sym": torch.as_tensor(gm.data_sym, dtype=torch.long,
+                                        device=device),
+            "data_sc": torch.as_tensor(gm.data_sc, dtype=torch.long,
+                                       device=device),
+            "data_bin": torch.as_tensor(gm.data_bin, dtype=torch.long,
+                                        device=device)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,18 +162,23 @@ def fill_grid_port(symbols, gm: GridMap, port: int):
     (36.211 §6.10.1.2)."""
     B = symbols.shape[0]
     fp = gm.fp
-    dev = symbols.device
+    pv, idx = _port_grid_tensors(gm, port, symbols.device)
     symbols = symbols.to(torch.complex64)
-    pv = torch.as_tensor(
-        gm.pilot_val[gm.pilot_port == port].astype(np.complex64), device=dev)
     src = torch.cat([symbols, pv.expand(B, -1), symbols.new_zeros(B, 1)],
                     dim=1)
-    idx = torch.as_tensor(_port_fill_index(gm, port), device=dev)
     return src[:, idx].reshape(B, fp.symbols_per_subframe, fp.n_fft)
+
+
+@functools.lru_cache(maxsize=None)
+def _port_grid_tensors(gm: GridMap, port: int, device) -> tuple:
+    """Port `port`'s pilot values and fill plan on `device`, uploaded once."""
+    return (torch.as_tensor(
+        gm.pilot_val[gm.pilot_port == port].astype(np.complex64),
+        device=device),
+        torch.as_tensor(_port_fill_index(gm, port), device=device))
 
 
 def extract_data_res(grid, gm: GridMap):
     """grid [B, nsym, n_fft] -> [B, n_data_re] (inverse of the fill order)."""
-    sym = torch.as_tensor(gm.data_sym, dtype=torch.long, device=grid.device)
-    bins = torch.as_tensor(gm.data_bin, dtype=torch.long, device=grid.device)
-    return grid[:, sym, bins]
+    plan = _grid_tensors(gm, grid.device)
+    return grid[:, plan["data_sym"], plan["data_bin"]]

@@ -183,9 +183,11 @@ class DlsimTxDiv:
 
     def trial(self, tb_bits, tap_normals, noise_normals, n0, W0, W1):
         """[B] subframes on injected draws: tb_bits [B, TBS] {0,1};
-        tap_normals [B, n_rx, 2, T, 2] and noise_normals
-        [B, n_rx, samples_per_tti, 2] standard normals; n0 the noise
-        variance; W0, W1 from `wiener`. Returns a TrialResult."""
+        tap_normals [B, n_rx, 2, T, 2] (with the AoA normals [B] beside
+        them for Rice1/Rice8, as ChannelModel.draw_normals gives them) and
+        noise_normals [B, n_rx, samples_per_tti, 2] standard normals; n0
+        the noise variance; W0, W1 from `wiener`. Returns a
+        TrialResult."""
         cfg, codec, gm, fp = self.cfg, self.dlsch, self.gm, self.fp
         dev = self.device
         B, R = tb_bits.shape[0], cfg.n_rx
@@ -199,7 +201,7 @@ class DlsimTxDiv:
 
         # channel [B, R, port, taps], constant over the subframe, applied
         # per (RX antenna, port) on the grid; one OFDM modulation per RX
-        taps = self.chan.draw_taps(B, normals=tap_normals.to(dev))
+        taps = self.chan.draw_taps(B, normals=tap_normals, device=dev)
         Hf = self.chan.freq_response(taps)               # [B, R, 2, n_sc]
         faded = sum(apply_channel_grid(g.repeat_interleave(R, dim=0),
                                        Hf[:, :, p].reshape(B * R, -1), fp)
@@ -240,8 +242,7 @@ class DlsimTxDiv:
         B, dev = self.cfg.batch, self.device
         tb = torch.randint(0, 2, (B, self.dlsch.cfg.tbs), generator=generator,
                            device=dev, dtype=torch.int32)
-        taps = torch.randn(B, self.cfg.n_rx, 2, self.chan.n_taps, 2,
-                           generator=generator, device=dev)
+        taps = self.chan.draw_normals(B, generator, dev)
         noise = torch.randn(B, self.cfg.n_rx, self.fp.samples_per_tti, 2,
                             generator=generator, device=dev)
         return self.trial(tb, taps, noise, n0, W0, W1)

@@ -1,15 +1,21 @@
-"""Phase split and device busy share of one TM2 and one TM3 step on a GPU.
+"""Phase split and device busy share of one step of each multi-antenna
+path and of the SISO 1x2 HARQ path on a GPU.
 
     python3 -m openair4g_tpu_torch.sim.phase_split [--out DIR]
+        [--only tm2|tm3|dd]
 
-For each of TM2 (50 PRB, MCS 25, EVA 2x2, batch 128, 14 dB) and TM3
-(100 PRB, MCS 26/26, 2x2, batch 64, 40 dB): the unwrapped step time over 5
+For each of TM2 (50 PRB, MCS 25, EVA 2x2, batch 128, 14 dB), TM3
+(100 PRB, MCS 26/26, 2x2, batch 64, 40 dB) and the decision-directed 1x2
+receiver over 4 HARQ rounds (100 PRB, MCS 26, EVA, CFI 2, batch 128,
+14.6 dB in the dlsim SNR convention): the unwrapped step time over 5
 steps; then the same 5 steps with each phase function wrapped in
 torch.cuda.synchronize()-bracketed host timers (the names the sim modules
 imported are patched, so the sync adds to the total and nested phases are
 reported inside their parent); then torch.profiler over 3 unwrapped steps
-for the device time and busy share. With --out, each profiler table is
-written to DIR/prof_<label>.txt.
+for the device time and busy share. With the dd path, the time-domain FIR
+channel of one round at the same shape against the per-subcarrier
+multiply, by CUDA events. With --out, each profiler table is written to
+DIR/prof_<label>.txt.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch
 
 from ..ops import turbo as turbo_mod
 from ..phy import ofdm, pdsch
-from . import dlsim_mimo, dlsim_sm
+from . import channels, dlsim, dlsim_mimo, dlsim_sm
 
 ACC: dict = collections.defaultdict(float)
 CNT: collections.Counter = collections.Counter()
@@ -71,6 +77,17 @@ def patch() -> list:
     p(dlsim_sm, "mmse_detect", "mmse_detect")
     p(dlsim_sm, "effective_channel", "effective_channel")
     p(dlsim_sm, "precode", "precode")
+    p(pdsch.DlschCodec, "encode_to_d", "encode to d (CRC, turbo encode)")
+    p(pdsch.DlschCodec, "select_e", "rate match (select_e)")
+    p(dlsim.DlsimFading, "round", "HARQ round (DlsimFading.round)")
+    p(dlsim.DlsimFading, "_channel", "  channel, AWGN and OFDM")
+    p(dlsim.DlsimFading, "_dd_estimate", "  dd estimate")
+    p(dlsim, "estimate_channel_joint", "    estimate_channel_joint")
+    p(dlsim, "dd_refine", "    dd_refine")
+    p(dlsim, "mrc_llr", "  mrc_llr (kernel; data and PDCCH)")
+    p(dlsim, "dci_blind_decode", "  dci_blind_decode")
+    p(dlsim, "fill_grid", "  fill_grid")
+    p(dlsim, "apply_channel_grid", "    channel on the grid")
     return saved
 
 
@@ -79,18 +96,18 @@ def unpatch(saved: list) -> None:
         setattr(obj, attr, f)
 
 
-def run(label: str, sim, snr: float, n_steps: int = 5,
+def run(label: str, sim, snr: float, state: tuple, n_steps: int = 5,
         out: str | None = None) -> None:
+    """`state`: the estimator arguments `step` takes after n0."""
     dev = sim.device
     gen = torch.Generator(device=dev).manual_seed(5)
     n0 = 10.0 ** (-snr / 10.0)
-    W0, W1 = sim.wiener(snr)
     for _ in range(2):
-        sim.step(gen, n0, W0, W1)
+        sim.step(gen, n0, *state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
-        sim.step(gen, n0, W0, W1)
+        sim.step(gen, n0, *state)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) / n_steps
     ACC.clear()
@@ -100,14 +117,18 @@ def run(label: str, sim, snr: float, n_steps: int = 5,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            sim.step(gen, n0, W0, W1)
+            sim.step(gen, n0, *state)
         torch.cuda.synchronize()
         synced = (time.perf_counter() - t0) / n_steps
     finally:
         unpatch(saved)
+    rounds = getattr(sim.cfg, "n_harq_rounds", 1)
+    per_round = (f", {sim.cfg.batch * rounds / plain:.1f} processed "
+                 f"subframes/s over {rounds} HARQ rounds" if rounds > 1
+                 else "")
     print(f"== {label}: unwrapped step {plain * 1e3:.1f} ms "
-          f"({sim.cfg.batch / plain:.1f} subframes/s), synced step "
-          f"{synced * 1e3:.1f} ms")
+          f"({sim.cfg.batch / plain:.1f} subframes/s{per_round}), synced "
+          f"step {synced * 1e3:.1f} ms")
     for k, v in sorted(ACC.items(), key=lambda kv: -kv[1]):
         print(f"  {k:45s} {v / n_steps * 1e3:8.2f} ms  "
               f"{v / n_steps / synced * 100:5.1f} %  ({CNT[k] / n_steps:.0f}"
@@ -117,7 +138,7 @@ def run(label: str, sim, snr: float, n_steps: int = 5,
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            sim.step(gen, n0, W0, W1)
+            sim.step(gen, n0, *state)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3
     events = prof.key_averages()
@@ -140,21 +161,76 @@ def run(label: str, sim, snr: float, n_steps: int = 5,
               f"  x{e.count / 3:.0f}")
 
 
+def _event_ms(fn, n: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def fir_cost(sim) -> None:
+    """One round's channel at the sim's shape ([B * n_rx] subframes):
+    the time-domain FIR path (OFDM modulate, then the linear convolution
+    by FFTs of length S + L) against the per-subcarrier multiply (then
+    OFDM modulate), device time by CUDA events."""
+    cfg, fp, dev = sim.cfg, sim.fp, sim.device
+    n = cfg.batch * cfg.n_rx
+    gen = torch.Generator(device=dev).manual_seed(6)
+    grid = torch.view_as_complex(torch.randn(
+        n, fp.symbols_per_subframe, fp.n_fft, 2, generator=gen, device=dev))
+    taps = sim.chan.draw_taps(cfg.batch, generator=gen,
+                              device=dev)[:, :, 0].reshape(n, -1)
+    L = channels._fir_sinc_matrix(sim.chan).shape[0]
+
+    def time_domain():
+        return channels.apply_channel_time(ofdm.ofdm_modulate(grid, fp),
+                                           sim.chan, taps)
+
+    def per_subcarrier():
+        return ofdm.ofdm_modulate(channels.apply_channel_grid(
+            grid, sim.chan.freq_response(taps), fp), fp)
+
+    fir, freq = _event_ms(time_domain), _event_ms(per_subcarrier)
+    print(f"== FIR: {n} subframes of S = {fp.samples_per_tti}, L = {L}, "
+          f"FFT length {fp.samples_per_tti + L}: time-domain channel "
+          f"{fir:.3f} ms, per-subcarrier multiply {freq:.3f} ms "
+          f"(OFDM modulation in both)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler tables")
+    ap.add_argument("--only", choices=("tm2", "tm3", "dd"),
+                    help="run one path (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("phase_split: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    run("TM2", dlsim_mimo.DlsimTxDiv(dlsim_mimo.DlsimTxDivConfig(
-        mcs=25, n_rb=50, n_rx=2, channel="EVA", batch=128), "cuda"), 14.0,
-        out=args.out)
-    run("TM3", dlsim_sm.DlsimSm(dlsim_sm.DlsimSmConfig(
-        tm=3, mcs=26, mcs2=26, n_rb=100, n_rx=2, batch=64), "cuda"), 40.0,
-        out=args.out)
+    if args.only in (None, "tm2"):
+        sim = dlsim_mimo.DlsimTxDiv(dlsim_mimo.DlsimTxDivConfig(
+            mcs=25, n_rb=50, n_rx=2, channel="EVA", batch=128), "cuda")
+        run("TM2", sim, 14.0, sim.wiener(14.0), out=args.out)
+    if args.only in (None, "tm3"):
+        sim = dlsim_sm.DlsimSm(dlsim_sm.DlsimSmConfig(
+            tm=3, mcs=26, mcs2=26, n_rb=100, n_rx=2, batch=64), "cuda")
+        run("TM3", sim, 40.0, sim.wiener(40.0), out=args.out)
+    if args.only in (None, "dd"):
+        sim = dlsim.DlsimFading(dlsim.DlsimFadingConfig(
+            mcs=26, n_rb=100, channel="EVA", n_rx=2, est_mode="dd",
+            n_pdcch_symbols=2, n_harq_rounds=4, snr_convention="dlsim",
+            batch=128), "cuda")
+        snr = 14.6 + dlsim.dlsim_snr_offset_db(sim.gm)
+        run("dd_1x2_harq", sim, snr, (sim.wiener(snr), sim.err_var(snr)),
+            out=args.out)
+        fir_cost(sim)
 
 
 if __name__ == "__main__":

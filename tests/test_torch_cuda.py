@@ -99,11 +99,30 @@ def test_step_on_card_decodes_through_both_kernels(cuda):
     gen.manual_seed(0)
     W, ev = sim.wiener(30.0), sim.err_var(30.0)
     before = launch_counts()
-    res = sim.step(gen, 10.0 ** -3.0, W, ev)
+    res = sim.step(gen, 10.0 ** -3.0, W, ev).rounds[0]
     after = launch_counts()
     assert bool(res.ok.all()) and int(res.bit_errs.sum()) == 0
     assert all(after[k] > before[k] for k in ("turbo_half_iter", "mrc_llr")), \
         (before, after)
+
+
+@pytest.mark.parametrize("est_mode", ["dd", "interp"])
+def test_1x2_harq_step_on_card_goes_through_mrc_at_two_antennas(cuda,
+                                                                est_mode):
+    """Two RX antennas, 2 HARQ rounds: per round one mrc_llr launch for the
+    data and one for the PDCCH, both at A = 2, and the turbo kernel."""
+    cfg = DlsimFadingConfig(mcs=16, n_rb=25, channel="EVA", n_rx=2,
+                            n_harq_rounds=2, batch=8, est_mode=est_mode,
+                            n_turbo_iter=4)
+    sim = DlsimFading(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    W, ev = sim.wiener(30.0), sim.err_var(30.0)
+    before = launch_counts()
+    res = sim.step(gen, 10.0 ** -3.0, W, ev)
+    after = launch_counts()
+    assert bool(res.rounds[0].ok.all()) and res.reach.tolist() == [8, 0]
+    assert after["mrc_llr"] == before["mrc_llr"] + 4, (before, after)
+    assert after["turbo_half_iter"] > before["turbo_half_iter"]
 
 
 @pytest.mark.parametrize("Qm", [2, 4, 6])

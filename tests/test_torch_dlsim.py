@@ -1,6 +1,7 @@
-"""The slice as a whole: DlsimFading round 0 of the PyTorch port against the
-JAX reference on the same draws (TB bits, channel taps, noise), replayed
-from the reference's own key splits, with identical estimator matrices.
+"""DlsimFading round 0 of the PyTorch port against the JAX reference on the
+same draws (TB bits, channel taps, noise), replayed from the reference's
+own key splits, with identical estimator matrices (the HARQ rounds and the
+other receiver and channel modes: tests/test_torch_dlsim_harq.py).
 
 25 PRB (5 CCEs, so the PDCCH is on), EVA, joint estimation, exp prior,
 batch 4, 4 turbo iterations, decoder window 96 on both sides (the CPU
@@ -63,7 +64,8 @@ def _run_both(jsim, sim, snr_db, seed):
                                       Wj, evj)
     W, ev = estimator_state_from_reference(np.asarray(Wj), np.asarray(evj),
                                            "cpu")
-    res = sim.round0(*draws, float(n0), W, ev)
+    tb, taps, noise = draws
+    res = sim.trial(tb, [taps], [noise], float(n0), W, ev).rounds[0]
     return (np.asarray(jok), np.asarray(jdci), [np.asarray(w) for w in jw]), \
         res, draws
 
@@ -102,17 +104,27 @@ def test_estimator_state_conversion():
 
 
 @pytest.mark.parametrize("change", [
-    dict(n_harq_rounds=2), dict(est_mode="interp"), dict(n_rx=2),
-    dict(time_domain_channel=True), dict(intra_doppler_hz=70.0),
-    dict(perfect_ce=True), dict(est_prior="pdp"), dict(harq_doppler_hz=5.0),
-    dict(snr_convention="dlsim"), dict(channel="Rice1")])
+    dict(est_mode="mmse"), dict(est_prior="flat"), dict(snr_convention="db"),
+    dict(channel="SCM_A"), dict(channel="eva"),
+    dict(est_mode="dd", intra_doppler_hz=70.0),
+    dict(est_mode="interp", intra_doppler_hz=70.0, n_rx=2),
+    dict(est_mode="interp", intra_doppler_hz=70.0, time_domain_channel=True),
+    dict(est_mode="joint", intra_doppler_hz=5.0, n_rx=2),
+    dict(est_mode="dd", intra_doppler_hz=5.0, n_rx=2)])
 def test_configs_outside_the_slice_raise(change):
+    """What neither simulator runs: unknown estimator, prior, SNR
+    convention or channel names, and the intra-subframe Doppler fade with
+    2 RX antennas, the time-domain channel or the decision-directed
+    estimator (which assumes a channel constant over the subframe)."""
     cfg = {**_config(4), **change}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         DlsimFading(DlsimFadingConfig(**cfg), device="cpu")
 
 
-def test_step_refuses_a_cpu_simulator():
+def test_step_runs_on_a_cpu_simulator():
+    """step draws on the simulator's own device, the CPU here."""
     sim = DlsimFading(DlsimFadingConfig(**_config(4)), device="cpu")
-    with pytest.raises(RuntimeError):
-        sim.step(torch.Generator(), 0.1, sim.wiener(10.0), sim.err_var(10.0))
+    res = sim.step(torch.Generator().manual_seed(0), 10.0 ** -3.0,
+                   sim.wiener(30.0), sim.err_var(30.0))
+    assert res.rounds[0].ok.device.type == "cpu"
+    assert bool(res.rounds[0].ok.all()) and res.reach.tolist() == [B]

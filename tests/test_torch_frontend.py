@@ -97,12 +97,12 @@ def test_channel_matches_reference_on_injected_taps():
            jch.apply_channel_grid(jnp.asarray(grid.numpy()), jH, fp))
 
 
-def test_channel_model_rejects_what_is_not_ported():
+def test_channel_model_rejects_names_outside_the_catalog():
     fp = rg.make_grid_map(25, 1).fp
-    with pytest.raises(NotImplementedError):
-        ch.ChannelModel("Rayleigh1_corr", fp, n_tx=2, n_rx=2)
-    with pytest.raises(NotImplementedError):
-        ch.ChannelModel("Rice1", fp)
+    with pytest.raises(ValueError):
+        ch.ChannelModel("SCM_A", fp, n_tx=2, n_rx=2)   # not in the reference
+    with pytest.raises(ValueError):
+        ch.ChannelModel("eva", fp)
 
 
 @pytest.mark.parametrize("n_rb,snr_db", [(25, 5.0), (25, 20.0), (100, 10.0)])

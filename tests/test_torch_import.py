@@ -39,3 +39,25 @@ def test_multi_antenna_modules_are_among_the_checked_ones():
             "openair4g_tpu_torch.phy.precoding",
             "openair4g_tpu_torch.phy.mimo_rx",
             "openair4g_tpu_torch.phy.dci_formats"} <= names
+
+
+def test_siso_harq_slice_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert {"openair4g_tpu_torch.sim.dlsim",
+            "openair4g_tpu_torch.sim.channels",
+            "openair4g_tpu_torch.sim.harness",
+            "openair4g_tpu_torch.phy.channel_est"} <= names
+
+
+def test_dlsim_command_line_starts_with_jax_blocked():
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['openair4g_tpu'] = None\n"
+            "sys.argv = ['dlsim', '--help']\n"
+            "runpy.run_module('openair4g_tpu_torch.sim.harness',\n"
+            "                 run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "--device" in r.stdout

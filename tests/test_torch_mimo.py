@@ -265,9 +265,13 @@ def test_mimo_tap_draw_matches_reference(name, n_rx):
 
 @pytest.mark.parametrize("name", ["Rice1", "Rayleigh1_corr", "SCM_C",
                                   "Rayleigh8", "AWGN"])
-def test_channels_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ChannelModel(name=name, fp=FrameParms(n_rb=25), n_tx=2, n_rx=2)
+def test_catalog_channels_draw_2x2_taps(name):
+    """Every catalog model draws [B, 2, 2, T] taps for the 2x2 simulators
+    (its draw is held to the reference in test_torch_channels.py)."""
+    cm = ChannelModel(name=name, fp=FrameParms(n_rb=25), n_tx=2, n_rx=2)
+    taps = cm.draw_taps(3, generator=torch.Generator().manual_seed(0))
+    assert taps.shape == (3, 2, 2, cm.n_taps)
+    assert cm.freq_response(taps).shape == (3, 2, 2, 300)
 
 
 # -------------------------------------------------------- demap_llr_fused --
