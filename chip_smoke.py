@@ -10,7 +10,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      report;
   3. the v2 turbo kernel and mrc_llr against their plain PyTorch versions
      on the card at the 20 MHz flagship shapes (max |diff| against the
-     stated tolerance, time of each by CUDA events);
+     stated tolerance, time of each by CUDA events over back-to-back
+     calls; the device time comes in phase 16). The v2 kernel keeps
+     one beta checkpoint per 8 trellis nodes in an L2-sized scratch and
+     recomputes each block's betas from it, with float4 loads and stores;
+     it must equal its plain version bit for bit. The phase prints that
+     scratch's bytes and the peak device memory of the kernel's call and
+     of the phase;
   4. the small-input check: 25 PRB round 0 on the card (kernels) and on
      the CPU (plain versions) with the same injected draws must agree;
   5. the flagship: DlsimFading round 0, 100 PRB MCS 26, EVA, joint
@@ -48,13 +54,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      bands (the JAX anchors were taken on a TPU);
  15. DlsimAwgn at bench.py's second configuration (BLER at most 0.01 at
      1 dB) and the dlsim command line on the card (-g EVA -r 4, -x 2),
-     each writing a reference-schema CSV under build/.
+     each writing a reference-schema CSV under build/;
+ 16. the device time of every kernel at each shape phases 3, 6, 7 and 11
+     timed, by torch.profiler's device-side events (the kernel alone,
+     without the host's enqueue time that CUDA events around
+     back-to-back calls of a few-µs kernel measure). It runs last: the
+     profiler is started after every path has run, so no path is timed
+     in a process that has held a profiling session.
 Each path is driven with the launch counts set to 0 just before it and
 read just after; every kernel must have launched on its path (v1, which
 no path runs, in its own timed run). Each phase prints its seconds. Ends
-with a JSON line of the kernels, then the device JSON line. It needs a
-CUDA device and imports nothing of JAX.
+with a JSON line of the kernels (launches on the paths, launches per
+flagship step, error, times, and the bound: the least time the card could
+take for the same work, from its bytes or operations), then the device
+JSON line. It needs a CUDA device and imports nothing of JAX.
 """
+import functools
 import json
 import os
 import re
@@ -74,7 +89,7 @@ from openair4g_tpu_torch.ops.turbo_cuda import (half_iteration,
                                                 half_iteration_prepped,
                                                 half_iteration_prepped_ref,
                                                 half_iteration_ref,
-                                                prep_parity)
+                                                prep_parity, scratch_numel)
 from openair4g_tpu_torch.phy.control_region import make_control_region_map
 from openair4g_tpu_torch.phy.resource_grid import make_grid_map
 from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
@@ -89,13 +104,21 @@ from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 BATCH = 128
 TURBO_ROWS, TURBO_W, TURBO_U, TURBO_NW = BATCH * 11, 240, 24, 24
 N_DATA, N_PDCCH_RE = 15000, 756
-# The turbo kernel and its plain version run the same float32 operations
-# in the same order; the bound allows for nothing but that.
-TURBO_ATOL = 1e-4
+# The turbo kernels and their plain versions run the same float32
+# operations in the same order: they must be equal bit for bit.
+TURBO_ATOL = 0.0
 # mrc_llr: the kernel forms -(num - l h2)^2 / (h2 n0), the plain version
 # (num/h2 - l)^2 / (n0/h2): same value, other rounding (as the reference's
 # tests/test_equalize_llr.py tolerates).
 MRC_RTOL = MRC_ATOL = 3e-4
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s, and float32 operations/s outside the tensor cores. The data
+# sheet's 67 TFLOP/s counts an FMA as two; the kernels' add, sub, max and
+# mul issue one a lane a cycle, so an operation counts at half that rate.
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12 / 2
+# The v2 scratch's limit at the flagship: one beta checkpoint per block
+# takes 32.4 MB; a per-node beta stack would take 260 MB.
+TURBO_SCRATCH_MAX = 40e6
 
 
 def _time_ms(fn, n: int) -> float:
@@ -111,28 +134,127 @@ def _time_ms(fn, n: int) -> float:
     return start.elapsed_time(stop) / n
 
 
-def check_turbo(dev, gen) -> dict:
+def _profiled(fn, n: int, kernel: str, acts) -> tuple:
+    """(launches seen, summed device µs) of the kernel whose name holds
+    `kernel` over n calls of fn, recorded in the second of two profiler
+    cycles: the first, n calls as well, lets the device tracing start (a
+    session that records from its first call can miss the launches made
+    while it starts)."""
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    evs = [e for e in prof.key_averages()
+           if kernel in e.key and e.self_device_time_total > 0]
+    return (sum(e.count for e in evs),
+            sum(e.self_device_time_total for e in evs))
+
+
+def _device_ms(fn, n: int, kernel: str) -> tuple:
+    """(mean device time in ms, launches it is the mean of) of the kernel
+    whose name holds `kernel`, from torch.profiler's device-side events:
+    the kernel alone, without the host's enqueue time that CUDA events
+    around back-to-back calls of a short kernel measure. A session whose
+    device events miss some of the n launches is run again, up to three
+    in all; the mean is over every launch the best session saw, and no
+    launch seen in any is an error."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    best = (0, 0.0)
+    for _ in range(3):
+        seen = _profiled(fn, n, kernel, acts)
+        best = max(best, seen)
+        if seen[0] == n:
+            break
+        print(f"  profiler saw {seen[0]} of {n} launches of {kernel}",
+              flush=True)
+    count, total_us = best
+    if count == 0:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return total_us / count / 1e3, count
+
+
+def device_times(timings: list) -> None:
+    """Phase 16: each (label, fn, kernel name, row) that the kernel checks
+    queued, timed by _device_ms; the row, if any, takes it as
+    device_ms."""
+    for label, fn, kernel, row in timings:
+        ms, count = _device_ms(fn, 20, kernel)
+        print(f"{label}: device time {ms:.4f} ms (mean of {count} "
+              "launches)", flush=True)
+        if row is not None:
+            row["device_ms"] = ms
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time for moving n_bytes and doing n_ops float32
+    operations on the card, and which of the two sets it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# Float32 operations a trellis position of one half-iteration takes: beta
+# step 40, alpha step 32, LLR 51 (8 states), renormalizations and the two
+# 0.5 scalings 5.
+TURBO_OPS_PER_POS = 128
+
+
+def check_turbo(dev, gen, timings) -> dict:
     N = TURBO_W * TURBO_NW
     lin = 3.0 * torch.randn(TURBO_ROWS, N, generator=gen, device=dev)
     lp = 3.0 * torch.randn(TURBO_ROWS, N, generator=gen, device=dev)
     lin[:, -TURBO_W // 2:] = 1e4       # the forced pad region after the tail
     lp[:, -TURBO_W // 2:] = 1e4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     got = half_iteration(lin, lp, TURBO_W, TURBO_U)
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated() - held
     want = half_iteration_ref(lin, lp, TURBO_W, TURBO_U)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    lanes = TURBO_ROWS * TURBO_NW
+    # measured: what the call allocated beyond its output
+    scratch = call_peak - 4 * got.numel()
     print(f"turbo_half_iter [{TURBO_ROWS}, {N}] W={TURBO_W} U={TURBO_U} "
-          f"lanes={TURBO_ROWS * TURBO_NW}: max|diff| {err:.3g} "
-          f"(tol {TURBO_ATOL})", flush=True)
+          f"lanes={lanes}: max|diff| {err:.3g} (tol {TURBO_ATOL}); "
+          f"the call's peak {call_peak} bytes above the {held} held before "
+          f"it, {scratch} of them scratch (the checkpoints' size "
+          f"{4 * scratch_numel(lanes, TURBO_W, TURBO_U)})", flush=True)
     if not err <= TURBO_ATOL:
         raise AssertionError(f"turbo kernel disagrees: {err}")
-    ms = _time_ms(lambda: half_iteration(lin, lp, TURBO_W, TURBO_U), 20)
+    if scratch > TURBO_SCRATCH_MAX:
+        raise AssertionError(f"turbo kernel scratch {scratch} bytes")
+    kernel = functools.partial(half_iteration, lin, lp, TURBO_W, TURBO_U)
+    ms = _time_ms(kernel, 20)
     plain = _time_ms(lambda: half_iteration_ref(lin, lp, TURBO_W, TURBO_U), 3)
-    print(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain}
+    bound = _bound(3 * 4 * TURBO_ROWS * N, TURBO_OPS_PER_POS * TURBO_ROWS * N)
+    print(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); share of the "
+          f"bound (bound / time) {bound['bound_ms'] / ms:.1%}", flush=True)
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "scratch_bytes": scratch, **bound}
+    timings.append(("turbo_half_iter flagship", kernel,
+                    "turbo_half_iter_kernel", row))
+    return row
 
 
-def check_mrc(dev, gen) -> dict:
+def _mrc_bound(n_re: int, A: int, Qm: int, n0_numel: int) -> dict:
+    """y and H complex64 [n, A] in, n0 float32, LLRs float32 [n, Qm] out;
+    about 12 operations an antenna (MRC sums) and 10 a bit (max-log
+    metrics) per RE."""
+    return _bound(16 * n_re * A + 4 * n0_numel + 4 * n_re * Qm,
+                  (12 * A + 10 * Qm) * n_re)
+
+
+def check_mrc(dev, gen, timings) -> dict:
     cases = [("PDSCH", 1, 6, (BATCH, N_DATA), "per-RE"),
              ("PDCCH", 1, 2, (BATCH, N_PDCCH_RE), "scalar"),
              ("2RX", 2, 4, (BATCH, N_DATA), "per-RE")]
@@ -153,15 +275,22 @@ def check_mrc(dev, gen) -> dict:
         ratio = (diff / (MRC_ATOL + MRC_RTOL * want.abs())).max().item()
         ms = _time_ms(lambda: mrc_llr(y, H, n0, Qm), 50)
         plain = _time_ms(lambda: mrc_llr_ref(y, H, n0, Qm), 5)
-        print(f"mrc_llr {name} A={A} Qm={Qm} REs={lead[0] * lead[1]} "
+        n_re = lead[0] * lead[1]
+        bound = _mrc_bound(n_re, A, Qm, 1 if kind == "scalar" else lead[1])
+        print(f"mrc_llr {name} A={A} Qm={Qm} REs={n_re} "
               f"n0 {kind}: max|diff| {err:.3g}, max |diff|/(atol+rtol|ref|)"
-              f" {ratio:.3g} (must be <= 1); kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms", flush=True)
+              f" {ratio:.3g} (must be <= 1); kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
         if not ratio <= 1.0:
             raise AssertionError(f"mrc_llr {name} disagrees: {ratio}")
         worst = max(worst, err)
+        row = None
         if name == "PDSCH":
-            out = {"ms": ms, "plain_ms": plain}
+            out = row = {"ms": ms, "plain_ms": plain, **bound}
+        timings.append((f"mrc_llr {name} A={A} Qm={Qm} REs={n_re}",
+                        functools.partial(mrc_llr, y, H, n0, Qm),
+                        "mrc_llr_kernel", row))
     out["max_abs_err"] = worst
     return out
 
@@ -202,7 +331,7 @@ def check_small_input(dev) -> None:
         raise AssertionError(f"small input soft buffers disagree: {worst}")
 
 
-def flagship(dev) -> dict:
+def flagship(dev) -> tuple:
     cfg = DlsimFadingConfig(mcs=26, n_rb=100, channel="EVA", n_rx=1,
                             n_harq_rounds=1, batch=BATCH, est_mode="joint",
                             n_turbo_iter=8)
@@ -244,7 +373,7 @@ def flagship(dev) -> dict:
         raise AssertionError("flagship at 24 dB decodes no TB")
     if min(counts["turbo_half_iter"], counts["mrc_llr"]) == 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
-    return counts
+    return counts, 2 + n_rep       # steps: 26 dB, settle, timed
 
 
 def _worst_ratio(got, want, rtol, atol) -> tuple:
@@ -252,7 +381,7 @@ def _worst_ratio(got, want, rtol, atol) -> tuple:
     return diff.max().item(), (diff / (atol + rtol * want.abs())).max().item()
 
 
-def check_demap(dev, gen) -> dict:
+def check_demap(dev, gen, timings) -> dict:
     """demap_llr at the multi-antenna paths' shapes: one layer of TM3's
     MMSE output [64, 14,400, 2] at 100 PRB (read in place at stride 2),
     TM2's SFBC output at 50 PRB batch 128, the SFBC PDCCH."""
@@ -276,21 +405,30 @@ def check_demap(dev, gen) -> dict:
         err, ratio = _worst_ratio(got, want, MRC_RTOL, MRC_ATOL)
         ms = _time_ms(lambda: demap_llr_fused(x, n0, Qm), 50)
         plain = _time_ms(lambda: demap_llr_fused_ref(x, n0, Qm), 5)
-        print(f"demap_llr {name} Qm={Qm} REs={lead[0] * lead[1]} "
+        n_re = lead[0] * lead[1]
+        # x complex64 and n0 float32 in, Qm LLRs out; about 10 operations
+        # a bit
+        bound = _bound((8 + 4 + 4 * Qm) * n_re, 10 * Qm * n_re)
+        print(f"demap_llr {name} Qm={Qm} REs={n_re} "
               f"{'stride 2' if layer is not None else 'contiguous'}: "
               f"max|diff| {err:.3g}, max |diff|/(atol+rtol|ref|) {ratio:.3g}"
-              f" (must be <= 1); kernel {ms:.4f} ms, plain {plain:.4f} ms",
+              f" (must be <= 1); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})",
               flush=True)
         if not ratio <= 1.0:
             raise AssertionError(f"demap_llr {name} disagrees: {ratio}")
         worst = max(worst, err)
+        row = None
         if name == "TM3 layer 0":
-            out = {"ms": ms, "plain_ms": plain}
+            out = row = {"ms": ms, "plain_ms": plain, **bound}
+        timings.append((f"demap_llr {name} Qm={Qm} REs={n_re}",
+                        functools.partial(demap_llr_fused, x, n0, Qm),
+                        "demap_llr_kernel", row))
     out["max_abs_err"] = worst
     return out
 
 
-def check_turbo_v1(dev, gen) -> tuple:
+def check_turbo_v1(dev, gen, timings) -> tuple:
     """The v1 kernel at the flagship shapes against its plain version and
     the v2 kernel. No path of the system runs v1, so its launch count is
     that of its own timed run (counts reset just before it)."""
@@ -314,18 +452,27 @@ def check_turbo_v1(dev, gen) -> tuple:
     n_v1 = launch_counts()["turbo_half_iter_v1"]
     plain = _time_ms(lambda: half_iteration_prepped_ref(lin, gpf, gpb,
                                                         TURBO_W, TURBO_U), 3)
+    # lin [B, N] and the two parity frames [W+U, L] in, [B, N] out
+    n_pos = TURBO_ROWS * N
+    bound = _bound(4 * (2 * n_pos + gpf.numel() + gpb.numel()),
+                   TURBO_OPS_PER_POS * n_pos)
     print(f"turbo_half_iter_v1 [{TURBO_ROWS}, {N}] W={TURBO_W} U={TURBO_U}: "
           f"max|diff| {err:.3g} (tol {TURBO_ATOL}); max|diff| to the v2 "
           f"kernel on interior nodes {d_v2:.3g} (bound 0.05); kernel "
-          f"{ms:.4f} ms over {n_v1} launches, plain {plain:.4f} ms",
-          flush=True)
+          f"{ms:.4f} ms over {n_v1} launches, plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
     if not err <= TURBO_ATOL:
         raise AssertionError(f"turbo v1 kernel disagrees: {err}")
     if not d_v2 <= 0.05:
         raise AssertionError(f"turbo v1 and v2 disagree inside windows: {d_v2}")
     if n_v1 == 0:
         raise AssertionError("the timed v1 run never launched the v1 kernel")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain}, n_v1
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound}
+    # its kernel alone, without the wrapper's two frame builds
+    timings.append(("turbo_half_iter_v1 flagship", functools.partial(
+        half_iteration_prepped, lin, gpf, gpb, TURBO_W, TURBO_U),
+        "turbo_half_iter_v1_kernel", row))
+    return row, n_v1
 
 
 _SMALL_MIMO = [("TM2", dict(mcs=25, channel="EVA")),
@@ -453,7 +600,7 @@ def tm3_full_width(dev) -> int:
     return counts["demap_llr"]
 
 
-def check_mrc_a2(dev, gen) -> dict:
+def check_mrc_a2(dev, gen, timings) -> dict:
     """mrc_llr at A = 2 on the 1x2 path's full-width shapes: 100 PRB at
     CFI 2 (13,800 data REs, 1,980 PDCCH REs), batch 128; data Qm = 6 with
     per-RE n0, PDCCH Qm = 2 with scalar n0."""
@@ -473,9 +620,14 @@ def check_mrc_a2(dev, gen) -> dict:
         err, ratio = _worst_ratio(got, want, MRC_RTOL, MRC_ATOL)
         ms = _time_ms(lambda: mrc_llr(y, H, n0, Qm), 50)
         plain = _time_ms(lambda: mrc_llr_ref(y, H, n0, Qm), 5)
+        bound = _mrc_bound(BATCH * n_re, 2, Qm, n_re if per_re else 1)
         print(f"mrc_llr {name} A=2 Qm={Qm} REs={BATCH * n_re}: max|diff| "
               f"{err:.3g}, max |diff|/(atol+rtol|ref|) {ratio:.3g} (must be "
-              f"<= 1); kernel {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
+              f"<= 1); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+        timings.append((f"mrc_llr {name} A=2 Qm={Qm} REs={BATCH * n_re}",
+                        functools.partial(mrc_llr, y, H, n0, Qm),
+                        "mrc_llr_kernel", None))
         if not ratio <= 1.0:
             raise AssertionError(f"mrc_llr {name} A=2 disagrees: {ratio}")
         worst = max(worst, err)
@@ -760,46 +912,60 @@ def main() -> None:
                       r"mrc_llr_kernel|demap_llr_kernel)I((?:Li\d+E)+)", line)
         if m:
             name = f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
-        elif "registers" in line and name:
+        elif ("registers" in line or "spill" in line) and name:
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    turbo = _phase(3, "turbo v2 kernel", check_turbo, dev, gen)
-    mrc = _phase(3, "mrc_llr kernel", check_mrc, dev, gen)
+    timings = []          # device times, taken in phase 16
+    torch.cuda.reset_peak_memory_stats()
+    turbo = _phase(3, "turbo v2 kernel", check_turbo, dev, gen, timings)
+    mrc = _phase(3, "mrc_llr kernel", check_mrc, dev, gen, timings)
+    print(f"phase 3 peak device memory {torch.cuda.max_memory_allocated()} "
+          "bytes (the plain versions' included)", flush=True)
     _phase(4, "small input, card against CPU", check_small_input, dev)
-    counts = _phase(5, "flagship", flagship, dev)
-    demap = _phase(6, "demap_llr kernel", check_demap, dev, gen)
-    turbo_v1, n_v1 = _phase(7, "turbo v1 kernel", check_turbo_v1, dev, gen)
+    counts, flagship_steps = _phase(5, "flagship", flagship, dev)
+    demap = _phase(6, "demap_llr kernel", check_demap, dev, gen, timings)
+    turbo_v1, n_v1 = _phase(7, "turbo v1 kernel", check_turbo_v1, dev, gen,
+                            timings)
     _phase(8, "small multi-antenna inputs", check_small_mimo, dev)
     n_demap = _phase(9, "TM2 anchor", tm2_anchor, dev) \
         + _phase(10, "TM3 full width", tm3_full_width, dev)
-    mrc.update(_phase(11, "mrc_llr at A = 2", check_mrc_a2, dev, gen))
+    mrc.update(_phase(11, "mrc_llr at A = 2", check_mrc_a2, dev, gen,
+                      timings))
     _phase(12, "small SISO inputs, card against CPU", check_small_siso, dev)
     dd = _phase(13, "dd 1x2 HARQ full width", dd_full_width, dev)
     _phase(14, "SISO fidelity anchors", fidelity_anchors, dev)
     n_awgn_turbo = _phase(15, "DlsimAwgn and the dlsim command line",
                           entry_point, dev)
+    _phase(16, "device time of each kernel", device_times, timings)
 
+    per_step = {k: v / flagship_steps for k, v in counts.items()}
     rows = [
         dict(name="turbo_half_iter", route="cuda",
              source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
              replaces="openair4g_tpu/ops/turbo_pallas.py:219",
              launches=counts["turbo_half_iter"] + dd["turbo_half_iter"]
-             + n_awgn_turbo, **turbo),
+             + n_awgn_turbo, launches_per_step=per_step["turbo_half_iter"],
+             **turbo),
         dict(name="turbo_half_iter_v1", route="cuda",
              source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
              replaces="openair4g_tpu/ops/turbo_pallas.py:70",
-             launches=n_v1, **turbo_v1),
+             launches=n_v1, launches_per_step=per_step["turbo_half_iter_v1"],
+             **turbo_v1),
         dict(name="mrc_llr", route="cuda",
              source="openair4g_tpu_torch/csrc/mrc_llr.cu",
              replaces="openair4g_tpu/ops/equalize_llr.py:40",
-             launches=counts["mrc_llr"] + dd["mrc_llr"], **mrc),
+             launches=counts["mrc_llr"] + dd["mrc_llr"],
+             launches_per_step=per_step["mrc_llr"], **mrc),
         dict(name="demap_llr", route="cuda",
              source="openair4g_tpu_torch/csrc/mrc_llr.cu",
              replaces="openair4g_tpu/ops/equalize_llr.py:138",
-             launches=n_demap, **demap),
+             launches=n_demap, launches_per_step=per_step["demap_llr"],
+             **demap),
     ]
+    for row in rows:        # no one PyTorch call computes any of these
+        row["library_ms"] = None
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

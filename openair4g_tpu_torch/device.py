@@ -39,8 +39,13 @@ def device_plan(host, device, build=None, dtype=None) -> torch.Tensor:
 
 
 def default_device() -> torch.device:
-    """`cuda` when a card is present, else `cpu` (the CPU serves the tests)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """`cuda`, the device an entry point runs on unless its caller names
+    another. Raises RuntimeError when no card is present: the CPU runs only
+    when asked for (`device="cpu"`), as the tests do."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is present; pass device='cpu' to "
+                           "run on the CPU")
+    return torch.device("cuda")
 
 
 def count_launch(name: str) -> None:

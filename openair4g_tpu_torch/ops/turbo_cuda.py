@@ -45,6 +45,12 @@ def pick_unroll(W: int, U: int) -> int:
     return 1
 
 
+def scratch_numel(L: int, W: int, U: int) -> int:
+    """Floats of the v2 kernel's scratch for L lanes: one beta checkpoint
+    (8 metrics) per lane and renormalization block, [W / R, L, 8]."""
+    return W // pick_unroll(W, U) * L * 8
+
+
 def _check_args(lin, lp, W: int, U: int):
     if lin.dim() != 2 or lin.shape != lp.shape:
         raise ValueError(f"lin {tuple(lin.shape)} and lp {tuple(lp.shape)} "
@@ -132,6 +138,85 @@ def half_iteration_ref(lin, lp, W: int, U: int):
     return out.reshape(W, B, n_w).permute(1, 2, 0).reshape(B, N)
 
 
+def _half_iteration_ckpt_ref(lin, lp, W: int, U: int):
+    """The v2 kernel's order of work in plain PyTorch, for the tests. The
+    backward sweep keeps one beta checkpoint per R nodes (beta at node p
+    before its block's renormalization; at node W the warm-up's carried
+    state) and skips its last block; each forward block recomputes its R
+    betas from its checkpoint ahead of its LLRs and alpha steps. Equal to
+    half_iteration_ref bit for bit."""
+    _check_args(lin, lp, W, U)
+    B, N = lin.shape
+    n_w = N // W
+    L = B * n_w
+    R = pick_unroll(W, U)
+    nb = W // R
+    dev = lin.device
+    n0, n1, p0, p1, sz0, su_p, sz_p = (device_plan(t, dev) for t in _TABLES)
+    sz0, su_p, sz_p = (x.float() for x in (sz0, su_p, sz_p))
+    gu, gp = (0.5 * g.reshape(L, W) for g in (lin, lp))    # lane-major rows
+    w = torch.arange(L, device=dev)[:, None] % n_w
+
+    def head(g):        # the next window's first U nodes (BIG at the last)
+        return torch.where(w == n_w - 1, BIG, torch.roll(g[:, :U], -1, 0))
+
+    def tail(g):        # the previous window's last U nodes (0 at the first)
+        return torch.where(w == 0, 0.0, torch.roll(g[:, W - U:], 1, 0))
+
+    def norm(x):
+        return x - x.max(dim=1, keepdim=True).values
+
+    def bstep(b, gu_t, gp_t):
+        gpt = sz0 * gp_t[:, None]
+        return torch.maximum(b[:, n0] + gu_t[:, None] + gpt,
+                             b[:, n1] - gu_t[:, None] - gpt)
+
+    def astep(a, gu_t, gp_t):
+        base = su_p * gu_t[:, None] + sz_p * gp_t[:, None]
+        return torch.maximum(a[:, p0] + base, a[:, p1] - base)
+
+    beta = torch.zeros(L, 8, device=dev)
+    hu, hp = head(gu), head(gp)
+    for i in range(U // R):
+        for t in range(U - 1 - i * R, U - 1 - (i + 1) * R, -1):
+            beta = bstep(beta, hu[:, t], hp[:, t])
+        beta = norm(beta)
+    ckpt = [None] * nb                        # ckpt[k]: beta at node (k+1) R
+    ckpt[nb - 1] = beta
+    for lo in range(W - R, 0, -R):
+        for t in range(lo + R - 1, lo - 1, -1):
+            beta = bstep(beta, gu[:, t], gp[:, t])
+        ckpt[lo // R - 1] = beta
+        beta = norm(beta)
+
+    alpha = torch.zeros(L, 8, device=dev)
+    tu, tp = tail(gu), tail(gp)
+    for i in range(U // R):
+        for t in range(i * R, (i + 1) * R):
+            alpha = astep(alpha, tu[:, t], tp[:, t])
+        alpha = norm(alpha)
+    exact0 = torch.full((8,), NEG, device=dev)
+    exact0[0] = 0.0
+    alpha = torch.where(w == 0, exact0, alpha)
+
+    out = torch.empty(L, W, device=dev)
+    for j in range(nb):
+        b = ckpt[j] if j == nb - 1 else norm(ckpt[j])
+        bv = [None] * R                       # bv[r]: beta at node jR + r + 1
+        bv[R - 1] = ckpt[j]
+        for r in range(R - 2, -1, -1):
+            b = bv[r] = bstep(b, gu[:, j * R + r + 1], gp[:, j * R + r + 1])
+        for r in range(R):
+            tau = j * R + r
+            gpt = sz0 * gp[:, tau][:, None]
+            m0 = (alpha + gpt + bv[r][:, n0]).max(dim=1).values
+            m1 = (alpha - gpt + bv[r][:, n1]).max(dim=1).values
+            out[:, tau] = (m0 + gu[:, tau]) - (m1 - gu[:, tau])
+            alpha = astep(alpha, gu[:, tau], gp[:, tau])
+        alpha = norm(alpha)
+    return out.reshape(B, N)
+
+
 def half_iteration(lin, lp, W: int, U: int):
     """One half-iteration: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -147,10 +232,14 @@ def half_iteration(lin, lp, W: int, U: int):
         raise ValueError("half_iteration: contiguous inputs required")
     B, N = lin.shape
     n_w = N // W
-    L = B * n_w
     lib = kernels.load()
     out = torch.empty_like(lin)
-    scr = torch.empty((W + 1) * 8 * L, dtype=torch.float32, device=lin.device)
+    for name, t in (("lin", lin), ("lp", lp), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"half_iteration: {name} is not 16-byte aligned"
+                             " (the kernel loads float4 vectors)")
+    scr = torch.empty(scratch_numel(B * n_w, W, U), dtype=torch.float32,
+                      device=lin.device)
     stream = torch.cuda.current_stream(lin.device).cuda_stream
     err = lib.turbo_half_iter_launch(lin.data_ptr(), lp.data_ptr(),
                                      out.data_ptr(), scr.data_ptr(), B, n_w,

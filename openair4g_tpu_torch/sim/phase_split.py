@@ -1,14 +1,16 @@
 """Phase split and device busy share of one step of each multi-antenna
-path and of the SISO 1x2 HARQ path on a GPU.
+path, of the SISO 1x2 HARQ path and of the SISO flagship on a GPU.
 
     python3 -m openair4g_tpu_torch.sim.phase_split [--out DIR]
-        [--only tm2|tm3|dd]
+        [--only tm2|tm3|dd|flagship]
 
-For each of TM2 (50 PRB, MCS 25, EVA 2x2, batch 128, 14 dB), TM3
-(100 PRB, MCS 26/26, 2x2, batch 64, 40 dB) and the decision-directed 1x2
-receiver over 4 HARQ rounds (100 PRB, MCS 26, EVA, CFI 2, batch 128,
-14.6 dB in the dlsim SNR convention): the unwrapped step time over 5
-steps; then the same 5 steps with each phase function wrapped in
+For each of the flagship (100 PRB, MCS 26, EVA, 1 RX, joint estimation,
+round 0, 8 turbo iterations, batch 128, 24 dB), TM2 (50 PRB, MCS 25, EVA
+2x2, batch 128, 14 dB), TM3 (100 PRB, MCS 26/26, 2x2, batch 64, 40 dB)
+and the decision-directed 1x2 receiver over 4 HARQ rounds (100 PRB,
+MCS 26, EVA, CFI 2, batch 128, 14.6 dB in the dlsim SNR convention): the
+unwrapped step time over 5 steps (10 for the flagship); then the same
+steps with each phase function wrapped in
 torch.cuda.synchronize()-bracketed host timers (the names the sim modules
 imported are patched, so the sync adds to the total and nested phases are
 reported inside their parent); then torch.profiler over 3 unwrapped steps
@@ -206,7 +208,7 @@ def fir_cost(sim) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler tables")
-    ap.add_argument("--only", choices=("tm2", "tm3", "dd"),
+    ap.add_argument("--only", choices=("tm2", "tm3", "dd", "flagship"),
                     help="run one path (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -214,6 +216,12 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    if args.only in (None, "flagship"):
+        sim = dlsim.DlsimFading(dlsim.DlsimFadingConfig(
+            mcs=26, n_rb=100, channel="EVA", n_rx=1, n_harq_rounds=1,
+            batch=128, est_mode="joint", n_turbo_iter=8), "cuda")
+        run("flagship", sim, 24.0, (sim.wiener(24.0), sim.err_var(24.0)),
+            n_steps=10, out=args.out)
     if args.only in (None, "tm2"):
         sim = dlsim_mimo.DlsimTxDiv(dlsim_mimo.DlsimTxDivConfig(
             mcs=25, n_rb=50, n_rx=2, channel="EVA", batch=128), "cuda")

@@ -34,9 +34,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,W,n_w", [(64, 48, 3), (64, 96, 2),
-                                     (1408, 240, 24)])
-def test_turbo_kernel_matches_plain_version(cuda, B, W, n_w):
+@pytest.mark.parametrize("B,W,n_w,U", [(64, 48, 3, 24), (64, 96, 2, 24),
+                                       (1408, 240, 24, 24), (5, 240, 3, 24),
+                                       (5, 44, 3, 20), (5, 42, 3, 18),
+                                       (5, 45, 3, 15)])
+def test_turbo_kernel_matches_plain_version(cuda, B, W, n_w, U):
+    """(5, 240, 3): 15 lanes, most of the kernel's one block masked. The
+    last three run the kernel's R = 4 (float4), 2 and 1 (scalar) instances;
+    the others R = 8."""
     rng = np.random.default_rng(W + n_w)
     lin = (3.0 * rng.standard_normal((B, W * n_w))).astype(np.float32)
     lp = (3.0 * rng.standard_normal((B, W * n_w))).astype(np.float32)
@@ -44,12 +49,12 @@ def test_turbo_kernel_matches_plain_version(cuda, B, W, n_w):
     lp[:, -7:] = BIG
     lin, lp = torch.from_numpy(lin).to(cuda), torch.from_numpy(lp).to(cuda)
     before = launch_counts()["turbo_half_iter"]
-    got = half_iteration(lin, lp, W, 24)
+    got = half_iteration(lin, lp, W, U)
     torch.cuda.synchronize()
     assert launch_counts()["turbo_half_iter"] == before + 1
-    # same float32 operations in the same order
-    torch.testing.assert_close(got, half_iteration_ref(lin, lp, W, 24),
-                               rtol=0, atol=1e-4)
+    # same float32 operations in the same order: equal bit for bit
+    torch.testing.assert_close(got, half_iteration_ref(lin, lp, W, U),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("A,Qm,n0_kind", [(1, 6, "per_re"), (1, 2, "scalar"),
@@ -88,6 +93,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     lin = torch.zeros(2, 96, device=cuda)
     with pytest.raises(TypeError):
         half_iteration(lin.double(), lin.double(), 48, 24)
+    off = torch.zeros(2 * 96 + 1, device=cuda)[1:].view(2, 96)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        half_iteration(off, lin, 48, 24)            # float4 loads
 
 
 def test_step_on_card_decodes_through_both_kernels(cuda):

@@ -1,11 +1,19 @@
 """The port and chip_smoke.py import torch and never jax, nor anything of
-the JAX package openair4g_tpu."""
+the JAX package openair4g_tpu; the simulators run on the card unless
+their caller asks for the CPU."""
 import pkgutil
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 import openair4g_tpu_torch
+from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
+                                           DlsimFading, DlsimFadingConfig)
+from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
+from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -61,3 +69,20 @@ def test_dlsim_command_line_starts_with_jax_blocked():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "--device" in r.stdout
+
+
+
+@pytest.mark.parametrize("sim_cls,cfg", [
+    (DlsimFading, DlsimFadingConfig(n_rb=6, batch=2)),
+    (DlsimSm, DlsimSmConfig(tm=3, n_rb=6, batch=2)),
+    (DlsimTxDiv, DlsimTxDivConfig(n_rb=6, batch=2)),
+    (DlsimAwgn, DlsimConfig(n_rb=6, batch=2))],
+    ids=["DlsimFading", "DlsimSm", "DlsimTxDiv", "DlsimAwgn"])
+def test_simulators_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                             sim_cls, cfg):
+    """device=None means the card: without one the simulator raises rather
+    than carry on on the CPU; device="cpu" still builds."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_cls(cfg)
+    assert sim_cls(cfg, device="cpu").device == torch.device("cpu")

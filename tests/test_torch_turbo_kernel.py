@@ -12,9 +12,11 @@ from openair4g_tpu.ops.turbo_pallas import (half_iteration_pallas_v2,
                                             prep_parity_v2)
 from openair4g_tpu_torch.device import launch_counts
 from openair4g_tpu_torch.ops import turbo
-from openair4g_tpu_torch.ops.turbo_cuda import (_TABLES, BIG, half_iteration,
+from openair4g_tpu_torch.ops.turbo_cuda import (_TABLES, BIG,
+                                                _half_iteration_ckpt_ref,
+                                                half_iteration,
                                                 half_iteration_ref,
-                                                pick_unroll)
+                                                pick_unroll, scratch_numel)
 
 # The suite runs in several pytest workers on the host's cores; torch's own
 # thread pool in each of them would oversubscribe the cores many times over.
@@ -43,6 +45,25 @@ def test_ref_matches_pallas_v2_every_node(W, n_w):
     got = half_iteration_ref(torch.from_numpy(lin), torch.from_numpy(lp),
                              W, U).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("W,n_w,U", [(W, n_w, 24) for W, n_w in _SHAPES]
+                         + [(240, 3, 24), (44, 3, 20), (42, 3, 18),
+                            (45, 3, 15)])
+def test_kernel_schedule_equals_plain_version(W, n_w, U):
+    """The CUDA kernel's order of work (beta checkpoints every R nodes,
+    each block's betas recomputed ahead of its LLRs) gives the plain
+    version's float32 results exactly; (44, 20), (42, 18) and (45, 15) run
+    at R = 4, 2 and 1."""
+    lin, lp = (torch.from_numpy(x) for x in _inputs(W, n_w, seed=2, B=3))
+    assert torch.equal(_half_iteration_ckpt_ref(lin, lp, W, U),
+                       half_iteration_ref(lin, lp, W, U))
+
+
+def test_kernel_scratch_is_one_checkpoint_per_block():
+    # the flagship: 1,408 rows of 24 windows, W = 240, U = 24
+    assert scratch_numel(1408 * 24, 240, 24) * 4 == 32_440_320
+    assert scratch_numel(10, 44, 20) == 11 * 10 * 8
 
 
 @pytest.mark.parametrize("W,n_w", _SHAPES)
