@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      sm_90a into build/kernels/ (one nvcc call), with ptxas's register
      report;
   3. the v2 turbo kernel and mrc_llr against their plain PyTorch versions
-     on the card at the 20 MHz flagship shapes (max |diff| against the
+     on the card at the 20 MHz flagship shapes (the PDCCH's n0 a number,
+     which goes in as a kernel argument; max |diff| against the
      stated tolerance, time of each by CUDA events over back-to-back
      calls; the device time comes in phase 16). The v2 kernel keeps
      one beta checkpoint per 8 trellis nodes in an L2-sized scratch and
@@ -28,7 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      paths' shapes, one layer of an MMSE output read in place;
   7. the v1 turbo kernel against its plain version and the v2 kernel at
      the flagship shapes; no path runs v1, so its launch count is that of
-     its timed run;
+     its timed run. It keeps beta checkpoints as v2 does and reads lin
+     where it lies: the phase prints the call's measured scratch, fails
+     above 45 MB, and checks that each call adds one to the wrapper's
+     launch count (phase 16 counts the device kernels of one call);
   8. small inputs of the multi-antenna simulators (TM2, TM3, TM4, TM5 IA,
      TM6; 25 PRB, batch 4, 30 dB), card against CPU on the same injected
      draws: TB flags, DCI flags and bit errors must be equal;
@@ -38,7 +42,10 @@ Phases, in order; any failure raises and the script exits non-zero:
  10. TM3 at full width (100 PRB, MCS 26/26, 2x2, batch 64): at 40 dB every
      DCI decodes and each codeword's BLER over 10 steps is at most 0.2;
  11. mrc_llr at A = 2 against its plain version at the 1x2 path's shapes
-     (100 PRB, CFI 2, batch 128: data Qm = 6 with per-RE n0, PDCCH Qm = 2);
+     (100 PRB, CFI 2, batch 128: data Qm = 6 with per-RE n0, PDCCH Qm = 2
+     with n0 a number), interleaved [B, N, 2] and as the path gives them,
+     [B, 2, N] antenna planes passed as transposed views and read where
+     they lie: the two must be equal;
  12. small inputs of DlsimFading (25 PRB, batch 4, 30 dB: dd 1x2 over 4
      HARQ rounds, interp on AWGN, the time-domain ETU channel, EVA at
      200 Hz, the AR(1) fade over 2 rounds, perfect CE 1x2) and DlsimAwgn,
@@ -58,9 +65,14 @@ Phases, in order; any failure raises and the script exits non-zero:
  16. the device time of every kernel at each shape phases 3, 6, 7 and 11
      timed, by torch.profiler's device-side events (the kernel alone,
      without the host's enqueue time that CUDA events around
-     back-to-back calls of a few-µs kernel measure). It runs last: the
-     profiler is started after every path has run, so no path is timed
-     in a process that has held a profiling session.
+     back-to-back calls of a few-µs kernel measure), each beside the
+     launch floor, the device time of an empty <<<1, 32>>> kernel of the
+     same library (kernels of different names share a profiler session);
+     then the device kernels, copies and fills of one v1
+     call, which must be its one kernel; then the device time a step of
+     phase 13's path. It runs last: the profiler is started after every
+     path has run, so no path is timed in a process that has held a
+     profiling session.
 Each path is driven with the launch counts set to 0 just before it and
 read just after; every kernel must have launched on its path (v1, which
 no path runs, in its own timed run). Each phase prints its seconds. Ends
@@ -93,10 +105,12 @@ from openair4g_tpu_torch.ops.turbo_cuda import (half_iteration,
 from openair4g_tpu_torch.phy.control_region import make_control_region_map
 from openair4g_tpu_torch.phy.resource_grid import make_grid_map
 from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
-                                           DlsimFading, DlsimFadingConfig)
+                                           DlsimFading, DlsimFadingConfig,
+                                           dlsim_snr_offset_db)
 from openair4g_tpu_torch.sim.harness import dlsim_main
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
+from openair4g_tpu_torch.sim.phase_split import profile_steps
 
 # Flagship shapes: 128 subframes x 11 code blocks of K = 5632 decode as
 # 1,408 rows of N = 5760 (24 windows of W = 240); 15,000 data REs and
@@ -119,6 +133,9 @@ HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12 / 2
 # The v2 scratch's limit at the flagship: one beta checkpoint per block
 # takes 32.4 MB; a per-node beta stack would take 260 MB.
 TURBO_SCRATCH_MAX = 40e6
+# The v1 kernel's limit: the same checkpoints (a per-node stack over its
+# W + U rows would take 285 MB).
+TURBO_V1_SCRATCH_MAX = 45e6
 
 
 def _time_ms(fn, n: int) -> float:
@@ -134,61 +151,127 @@ def _time_ms(fn, n: int) -> float:
     return start.elapsed_time(stop) / n
 
 
-def _profiled(fn, n: int, kernel: str, acts) -> tuple:
-    """(launches seen, summed device µs) of the kernel whose name holds
-    `kernel` over n calls of fn, recorded in the second of two profiler
-    cycles: the first, n calls as well, lets the device tracing start (a
-    session that records from its first call can miss the launches made
-    while it starts)."""
+def _profiled(items: list, n: int) -> list:
+    """[(launches seen, summed device µs)] for each (fn, kernel name) of
+    items: n back-to-back calls of each fn in turn, recorded in the second
+    of two profiler cycles (the first, the same calls, lets the device
+    tracing start: a session that records from its first call can miss the
+    launches made while it starts). A kernel name is matched with the
+    spaces taken out, and no two items of one session may share one."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     with torch.profiler.profile(activities=acts, schedule=sched) as prof:
         for _ in range(2):
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+            for fn, _ in items:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
             prof.step()
-    evs = [e for e in prof.key_averages()
-           if kernel in e.key and e.self_device_time_total > 0]
-    return (sum(e.count for e in evs),
-            sum(e.self_device_time_total for e in evs))
+    events = [(e.key.replace(" ", ""), e.count, e.self_device_time_total)
+              for e in prof.key_averages() if e.self_device_time_total > 0]
+    return [(sum(c for key, c, _ in events if kernel in key),
+             sum(us for key, _, us in events if kernel in key))
+            for _, kernel in items]
 
 
-def _device_ms(fn, n: int, kernel: str) -> tuple:
-    """(mean device time in ms, launches it is the mean of) of the kernel
-    whose name holds `kernel`, from torch.profiler's device-side events:
+def _device_ms(items: list, n: int) -> list:
+    """[(mean device time in ms, launches it is the mean of)] of each
+    (fn, kernel name) of items, from torch.profiler's device-side events:
     the kernel alone, without the host's enqueue time that CUDA events
-    around back-to-back calls of a short kernel measure. A session whose
-    device events miss some of the n launches is run again, up to three
-    in all; the mean is over every launch the best session saw, and no
-    launch seen in any is an error."""
-    fn()
+    around back-to-back calls of a short kernel measure. Items whose
+    kernel names differ share a profiler session. The items whose device
+    events miss some of their n launches are run again, up to three
+    sessions in all; the mean is over every launch the best session saw,
+    and no launch seen in any is an error."""
+    for fn, _ in items:
+        fn()
+    torch.cuda.synchronize()
+    best = [(0, 0.0)] * len(items)
+    todo = list(range(len(items)))
+    for _ in range(3):
+        sessions = []            # indices, no kernel name twice in one
+        for k in todo:
+            for session in sessions:
+                if all(items[j][1] != items[k][1] for j in session):
+                    session.append(k)
+                    break
+            else:
+                sessions.append([k])
+        for session in sessions:
+            seen = _profiled([items[k] for k in session], n)
+            for k, got in zip(session, seen):
+                best[k] = max(best[k], got)
+                if got[0] != n:
+                    print(f"  profiler saw {got[0]} of {n} launches of "
+                          f"{items[k][1]}", flush=True)
+        todo = [k for k in todo if best[k][0] != n]
+        if not todo:
+            break
+    for k, (count, _) in enumerate(best):
+        if count == 0:
+            raise AssertionError("the profiler saw no launch of "
+                                 f"{items[k][1]}")
+    return [(us / count / 1e3, count) for count, us in best]
+
+
+def _device_events(fn) -> list:
+    """(name, count) of every device-side event (kernels, copies, fills)
+    that one call of fn makes, by torch.profiler."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    best = (0, 0.0)
-    for _ in range(3):
-        seen = _profiled(fn, n, kernel, acts)
-        best = max(best, seen)
-        if seen[0] == n:
-            break
-        print(f"  profiler saw {seen[0]} of {n} launches of {kernel}",
-              flush=True)
-    count, total_us = best
-    if count == 0:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return total_us / count / 1e3, count
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
 
 
-def device_times(timings: list) -> None:
-    """Phase 16: each (label, fn, kernel name, row) that the kernel checks
-    queued, timed by _device_ms; the row, if any, takes it as
-    device_ms."""
-    for label, fn, kernel, row in timings:
-        ms, count = _device_ms(fn, 20, kernel)
+def device_times(timings: list, one_launch: tuple, dd: tuple) -> None:
+    """Phase 16: the launch floor (an empty <<<1, 32>>> kernel of the
+    library) and each (label, fn, kernel name, row) that the kernel checks
+    queued, timed by _device_ms (the row, if any, takes it as device_ms);
+    the device events of one call of one_launch = (label, fn, kernel name),
+    which must be that kernel once and nothing else; the device time a step
+    of dd = (sim, SNR)."""
+    lib = kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    items = [(lambda: kernels.check(lib.empty_launch(stream), "empty"),
+              "empty_kernel")] + [(fn, kernel) for _, fn, kernel, _ in timings]
+    (floor, count), *times = _device_ms(items, 20)
+    print(f"launch floor: an empty <<<1, 32>>> kernel takes {floor:.4f} ms "
+          f"of device time (mean of {count} launches)", flush=True)
+    for (label, _, _, row), (ms, count) in zip(timings, times):
         print(f"{label}: device time {ms:.4f} ms (mean of {count} "
-              "launches)", flush=True)
+              f"launches; launch floor {floor:.4f} ms)", flush=True)
         if row is not None:
             row["device_ms"] = ms
+            row["launch_floor_ms"] = floor
+
+    label, fn, kernel = one_launch
+    fn()
+    for _ in range(3):       # a session can miss events: none seen, again
+        seen = _device_events(fn)
+        if seen:
+            break
+    print(f"{label}: the device events of one call: {seen}", flush=True)
+    if len(seen) != 1 or kernel not in seen[0][0] or seen[0][1] != 1:
+        raise AssertionError(f"{label}: one call must be one launch of "
+                             f"{kernel} and no other device work: {seen}")
+
+    sim, snr = dd
+    snr += dlsim_snr_offset_db(sim.gm)
+    n0 = 10.0 ** (-snr / 10.0)
+    gen = torch.Generator(device=sim.device).manual_seed(5)
+    n_steps = 2
+    _, dev_us, wall = profile_steps(sim, gen, n0,
+                                    (sim.wiener(snr), sim.err_var(snr)),
+                                    n=n_steps)
+    print(f"dd 1x2 100 PRB, 4 rounds: {dev_us / n_steps / 1e3:.2f} ms device "
+          f"time a step over {n_steps} profiled steps ({wall * 1e3:.1f} ms a "
+          f"profiled step on the host)", flush=True)
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -242,7 +325,7 @@ def check_turbo(dev, gen, timings) -> dict:
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
            "scratch_bytes": scratch, **bound}
     timings.append(("turbo_half_iter flagship", kernel,
-                    "turbo_half_iter_kernel", row))
+                    "turbo_half_iter_kernel<", row))
     return row
 
 
@@ -290,7 +373,7 @@ def check_mrc(dev, gen, timings) -> dict:
             out = row = {"ms": ms, "plain_ms": plain, **bound}
         timings.append((f"mrc_llr {name} A={A} Qm={Qm} REs={n_re}",
                         functools.partial(mrc_llr, y, H, n0, Qm),
-                        "mrc_llr_kernel", row))
+                        f"mrc_llr_kernel<{A},{Qm}>", row))
     out["max_abs_err"] = worst
     return out
 
@@ -423,22 +506,30 @@ def check_demap(dev, gen, timings) -> dict:
             out = row = {"ms": ms, "plain_ms": plain, **bound}
         timings.append((f"demap_llr {name} Qm={Qm} REs={n_re}",
                         functools.partial(demap_llr_fused, x, n0, Qm),
-                        "demap_llr_kernel", row))
+                        f"demap_llr_kernel<{Qm}>", row))
     out["max_abs_err"] = worst
     return out
 
 
 def check_turbo_v1(dev, gen, timings) -> tuple:
     """The v1 kernel at the flagship shapes against its plain version and
-    the v2 kernel. No path of the system runs v1, so its launch count is
-    that of its own timed run (counts reset just before it)."""
+    the v2 kernel, with the scratch one call allocates. No path of the
+    system runs v1, so its launch count is that of its own timed run
+    (counts reset just before it), one launch a call."""
     N = TURBO_W * TURBO_NW
     lin = 3.0 * torch.randn(TURBO_ROWS, N, generator=gen, device=dev)
     lp = 3.0 * torch.randn(TURBO_ROWS, N, generator=gen, device=dev)
     lin[:, -TURBO_W // 2:] = 1e4
     lp[:, -TURBO_W // 2:] = 1e4
     gpf, gpb = prep_parity(lp, TURBO_W, TURBO_U)
+    half_iteration_prepped(lin, gpf, gpb, TURBO_W, TURBO_U)   # built, loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     got = half_iteration_prepped(lin, gpf, gpb, TURBO_W, TURBO_U)
+    torch.cuda.synchronize()
+    # measured: what the call allocated beyond its output
+    scratch = torch.cuda.max_memory_allocated() - held - 4 * got.numel()
     want = half_iteration_prepped_ref(lin, gpf, gpb, TURBO_W, TURBO_U)
     v2 = half_iteration(lin, lp, TURBO_W, TURBO_U)
     torch.cuda.synchronize()
@@ -450,29 +541,46 @@ def check_turbo_v1(dev, gen, timings) -> tuple:
     ms = _time_ms(lambda: half_iteration_prepped(lin, gpf, gpb, TURBO_W,
                                                  TURBO_U), 20)
     n_v1 = launch_counts()["turbo_half_iter_v1"]
+    if n_v1 != 21:           # _time_ms: one warm-up call and the 20 timed
+        raise AssertionError(f"21 v1 calls made {n_v1} launches")
     plain = _time_ms(lambda: half_iteration_prepped_ref(lin, gpf, gpb,
                                                         TURBO_W, TURBO_U), 3)
     # lin [B, N] and the two parity frames [W+U, L] in, [B, N] out
     n_pos = TURBO_ROWS * N
     bound = _bound(4 * (2 * n_pos + gpf.numel() + gpb.numel()),
                    TURBO_OPS_PER_POS * n_pos)
+    # the bytes the function needs: rows U.. of gpf repeat rows 0..W-1 of
+    # gpb, so of gpf only the U warm-up rows
+    needed = _bound(4 * (2 * n_pos + TURBO_U * gpf.shape[1] + gpb.numel()),
+                    TURBO_OPS_PER_POS * n_pos)
     print(f"turbo_half_iter_v1 [{TURBO_ROWS}, {N}] W={TURBO_W} U={TURBO_U}: "
           f"max|diff| {err:.3g} (tol {TURBO_ATOL}); max|diff| to the v2 "
           f"kernel on interior nodes {d_v2:.3g} (bound 0.05); kernel "
-          f"{ms:.4f} ms over {n_v1} launches, plain {plain:.4f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+          f"{ms:.4f} ms over {n_v1} launches in {n_v1} calls, plain "
+          f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}, every input once; with gpf's {TURBO_U} "
+          f"warm-up rows only, the rest being in gpb, "
+          f"{needed['bound_ms']:.4f} ms by {needed['bound_by']}); the "
+          f"call's scratch {scratch} bytes (the "
+          f"checkpoints' size "
+          f"{4 * scratch_numel(TURBO_ROWS * TURBO_NW, TURBO_W, TURBO_U)}; "
+          f"limit {TURBO_V1_SCRATCH_MAX:.0f})", flush=True)
     if not err <= TURBO_ATOL:
         raise AssertionError(f"turbo v1 kernel disagrees: {err}")
     if not d_v2 <= 0.05:
         raise AssertionError(f"turbo v1 and v2 disagree inside windows: {d_v2}")
-    if n_v1 == 0:
-        raise AssertionError("the timed v1 run never launched the v1 kernel")
-    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound}
-    # its kernel alone, without the wrapper's two frame builds
-    timings.append(("turbo_half_iter_v1 flagship", functools.partial(
-        half_iteration_prepped, lin, gpf, gpb, TURBO_W, TURBO_U),
-        "turbo_half_iter_v1_kernel", row))
-    return row, n_v1
+    if scratch > TURBO_V1_SCRATCH_MAX:
+        raise AssertionError(f"turbo v1 kernel scratch {scratch} bytes")
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "scratch_bytes": scratch, **bound,
+           "needed_bound_ms": needed["bound_ms"],
+           "needed_bound_by": needed["bound_by"]}
+    call = functools.partial(half_iteration_prepped, lin, gpf, gpb, TURBO_W,
+                             TURBO_U)
+    timings.append(("turbo_half_iter_v1 flagship", call,
+                    "turbo_half_iter_v1_kernel<", row))
+    return row, n_v1, ("turbo_half_iter_v1 flagship", call,
+                       "turbo_half_iter_v1_kernel")
 
 
 _SMALL_MIMO = [("TM2", dict(mcs=25, channel="EVA")),
@@ -603,7 +711,9 @@ def tm3_full_width(dev) -> int:
 def check_mrc_a2(dev, gen, timings) -> dict:
     """mrc_llr at A = 2 on the 1x2 path's full-width shapes: 100 PRB at
     CFI 2 (13,800 data REs, 1,980 PDCCH REs), batch 128; data Qm = 6 with
-    per-RE n0, PDCCH Qm = 2 with scalar n0."""
+    per-RE n0, PDCCH Qm = 2 with n0 a number; interleaved [B, N, 2], and
+    [B, 2, N] planes given as transposed views, which must give the same
+    LLRs."""
     n_data = make_grid_map(100, 2).n_data_re
     n_pdcch = make_control_region_map(100, 2).n_cce * 36
     out, worst = {}, 0.0
@@ -616,18 +726,32 @@ def check_mrc_a2(dev, gen, timings) -> dict:
             else 0.05
         got = mrc_llr(y, H, n0, Qm)
         want = mrc_llr_ref(y, H, n0, Qm)
+        # what the 1x2 receiver passes: [B, 2, N] planes as transposed views
+        yp, Hp = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (y, H))
+        planes = mrc_llr(yp, Hp, n0, Qm)
         torch.cuda.synchronize()
         err, ratio = _worst_ratio(got, want, MRC_RTOL, MRC_ATOL)
         ms = _time_ms(lambda: mrc_llr(y, H, n0, Qm), 50)
+        planes_ms = _time_ms(lambda: mrc_llr(yp, Hp, n0, Qm), 50)
         plain = _time_ms(lambda: mrc_llr_ref(y, H, n0, Qm), 5)
         bound = _mrc_bound(BATCH * n_re, 2, Qm, n_re if per_re else 1)
         print(f"mrc_llr {name} A=2 Qm={Qm} REs={BATCH * n_re}: max|diff| "
               f"{err:.3g}, max |diff|/(atol+rtol|ref|) {ratio:.3g} (must be "
-              f"<= 1); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+              f"<= 1); kernel {ms:.4f} ms interleaved, {planes_ms:.4f} ms on "
+              f"[B, 2, N] planes (equal: {torch.equal(planes, got)}), plain "
+              f"{plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
         timings.append((f"mrc_llr {name} A=2 Qm={Qm} REs={BATCH * n_re}",
                         functools.partial(mrc_llr, y, H, n0, Qm),
-                        "mrc_llr_kernel", None))
+                        f"mrc_llr_kernel<2,{Qm}>", None))
+        timings.append((f"mrc_llr {name} A=2 Qm={Qm} REs={BATCH * n_re} on "
+                        "[B, 2, N] planes",
+                        functools.partial(mrc_llr, yp, Hp, n0, Qm),
+                        f"mrc_llr_kernel<2,{Qm}>", None))
+        if yp.is_contiguous() or not torch.equal(planes, got):
+            raise AssertionError(f"mrc_llr {name} on [B, 2, N] planes is not "
+                                 "the interleaved call's result")
         if not ratio <= 1.0:
             raise AssertionError(f"mrc_llr {name} A=2 disagrees: {ratio}")
         worst = max(worst, err)
@@ -751,7 +875,7 @@ def dd_full_width(dev) -> dict:
     if min(counts["mrc_llr"], counts["turbo_half_iter"]) == 0:
         raise AssertionError(f"a kernel of the dd 1x2 path never launched: "
                              f"{counts}")
-    return counts
+    return counts, (sim, snr)
 
 
 # The SISO fidelity anchors (the JAX package's, taken on a TPU): name,
@@ -926,19 +1050,20 @@ def main() -> None:
     _phase(4, "small input, card against CPU", check_small_input, dev)
     counts, flagship_steps = _phase(5, "flagship", flagship, dev)
     demap = _phase(6, "demap_llr kernel", check_demap, dev, gen, timings)
-    turbo_v1, n_v1 = _phase(7, "turbo v1 kernel", check_turbo_v1, dev, gen,
-                            timings)
+    turbo_v1, n_v1, v1_call = _phase(7, "turbo v1 kernel", check_turbo_v1,
+                                     dev, gen, timings)
     _phase(8, "small multi-antenna inputs", check_small_mimo, dev)
     n_demap = _phase(9, "TM2 anchor", tm2_anchor, dev) \
         + _phase(10, "TM3 full width", tm3_full_width, dev)
     mrc.update(_phase(11, "mrc_llr at A = 2", check_mrc_a2, dev, gen,
                       timings))
     _phase(12, "small SISO inputs, card against CPU", check_small_siso, dev)
-    dd = _phase(13, "dd 1x2 HARQ full width", dd_full_width, dev)
+    dd, dd_sim = _phase(13, "dd 1x2 HARQ full width", dd_full_width, dev)
     _phase(14, "SISO fidelity anchors", fidelity_anchors, dev)
     n_awgn_turbo = _phase(15, "DlsimAwgn and the dlsim command line",
                           entry_point, dev)
-    _phase(16, "device time of each kernel", device_times, timings)
+    _phase(16, "device time of each kernel", device_times, timings, v1_call,
+           dd_sim)
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
     rows = [

@@ -269,120 +269,217 @@ turbo_half_iter_kernel(const float* __restrict__ lin, const float* __restrict__ 
   }
 }
 
-// The v1 kernel: the same half-iteration from window-replicated t-major
-// frames [T = W + U, L] (lane = block * n_w + window), built by the wrapper
-// as the TPU kernel's host code builds them:
-//   guf/gpf row t: position w*W - U + t (0 before the trellis start),
-//   gub/gpb row t: position w*W + t (BIG past the end).
+// R floats at p, p + stride, ...: one row each of a t-major frame, where a
+// warp's lanes read neighbouring addresses.
+template <int R>
+__device__ __forceinline__ void load_rows(const float* p, long long stride,
+                                          float* v) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = p[r * stride];
+}
+
+// The v1 kernel: the same half-iteration with the parity given as
+// window-replicated t-major frames [T = W + U, L] (lane = block * n_w +
+// window), already scaled by 0.5, built once a decode by the wrapper's
+// prep_parity as the TPU kernel's host code builds them:
+//   gpf row t: position w*W - U + t (0 before the trellis start),
+//   gpb row t: position w*W + t (BIG past the end).
 // Replaces openair4g_tpu/ops/turbo_pallas.py (_make_kernel / _build_call /
-// half_iteration_pallas_prepped) and follows its body lane for lane:
-//   * one backward sweep over all T rows from beta = 0, beta stored after
-//     each row (before the block's renormalization) in scr [T, 8, L],
-//   * forward warm-up over the U guf rows from alpha = 0; window 0 starts
+// half_iteration_pallas_prepped) and computes what its body computes, lane
+// for lane:
+//   * one backward sweep over all T rows from beta = 0; beta at node t is
+//     the value after row t, before the block's renormalization,
+//   * forward warm-up over the U gpf rows from alpha = 0; window 0 starts
 //     exactly in state 0,
 //   * forward work over W rows emitting (m0 + gu) - (m1 - gu) from
 //     beta[tau + 1],
 // renormalizing every R steps at the TPU kernel's points. It differs from
-// the v2 kernel only in beta at node W (stored before, not after, the
+// the v2 kernel only in beta at node W (the value before, not after, the
 // warm-up's last renormalization), which moves the LLR at a window's last
-// node by float rounding.
+// node by float rounding. The TPU kernel also takes lin as two frames (fwd
+// row U + tau and bwd row tau hold the same position w*W + tau); here lin is
+// read where it lies.
 //
-// Design: one thread per lane as in v2; at a fixed row t, neighbouring
-// lanes read neighbouring addresses of the t-major frames and of the
-// lane-minor scratch, so every load and store of a warp coalesces. What
-// bounds it: the serial recursion, as v2, plus the four frames' traffic
-// (4 T L floats in, W L out, 16 T L scratch bytes written and read).
+// What bounds it: device memory by the count of its operands (lin, the two
+// parity frames and out, each once: 136 MB at the flagship, 41 us), but
+// what it reaches is set by the serial recursion of one thread a lane, as
+// in v2.
+//
+// Design: the v2 kernel's, on v1's operands. Against the faults of the first
+// port of this kernel (a per-node beta stack [T, 8, L] in device memory,
+// 545 MB written and read at the flagship; the forward sweep reading each
+// main position from both frames; two frames of lin built and the output
+// un-framed by separate launches on every call):
+//   1. One beta checkpoint per renormalization block in ck [W/R, L, 8]
+//      (32.4 MB at the flagship), each forward block's R betas recomputed in
+//      registers. Every checkpoint, the one at node W too, is the value
+//      before its block's renormalization: the LLR at node p - 1 reads it as
+//      it is and the recomputation starts from normalize() of it, the state
+//      the backward sweep carried on. The backward sweep skips its last
+//      block.
+//   2. lin [B, N] is read in place at computed offsets as float4 vectors,
+//      scaled by 0.5 here; the last window's head is BIG and window 0's
+//      warm-up, whose alpha the exact start state replaces, is not run. The
+//      LLRs go straight into out [B, N] as float4s. So a call is this one
+//      launch.
+//   3. The parity comes from the frames, one row a step, coalesced across
+//      a warp's lanes; the forward sweep reads each main position once,
+//      from gpb (gpf row U + tau is the same position: no pad lies inside a
+//      window), and gpf only over its U warm-up rows. Both main sweeps load
+//      the next block's values into registers while the current block
+//      computes.
 template <int R>
-__global__ void __launch_bounds__(128)
-turbo_half_iter_v1_kernel(const float* __restrict__ guf,
+__global__ void __launch_bounds__(128, 2)
+turbo_half_iter_v1_kernel(const float* __restrict__ lin,
                           const float* __restrict__ gpf,
-                          const float* __restrict__ gub,
                           const float* __restrict__ gpb,
-                          float* __restrict__ out, float* __restrict__ scr,
-                          int L, int n_w, int W, int U) {
+                          float* __restrict__ out, float* __restrict__ ck,
+                          int n_w, int W, int U, int L) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
-  const int T = W + U;
+  const int w = lane % n_w;
+  const long long base = (long long)lane * W;
   const long long Ll = L;
+  const float* gu_row = lin + base;        // node t of this window at [t]
+  const float* pf = gpf + lane;            // row t at [t * Ll]
+  const float* pb = gpb + lane;
+  float* o_row = out + base;
+  float* ck_lane = ck + (long long)lane * 8;
+  const long long ck_stride = Ll * 8;
+  const int nb = W / R;                    // blocks a window, checkpoints a lane
+  const bool last = (w == n_w - 1);
 
+  // ---- backward sweep, rows T-1 .. W: the next window's head ----
   float beta[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) beta[s] = 0.f;
-  for (int i = 0; i < T / R; ++i) {
+  for (int i = 0; i < U / R; ++i) {
+    const int lo = W + U - (i + 1) * R;
+    float gu[R], gp[R];
+    load_rows<R>(pb + lo * Ll, Ll, gp);
+    if (last) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int t = T - 1 - (i * R + r);
-      beta_step(beta, gub[t * Ll + lane], gpb[t * Ll + lane]);
+      for (int r = 0; r < R; ++r) gu[r] = BIG;
+    } else {
+      load_block<R>(gu_row + lo, gu);
 #pragma unroll
-      for (int s = 0; s < 8; ++s) scr[((long long)t * 8 + s) * Ll + lane] = beta[s];
+      for (int r = 0; r < R; ++r) gu[r] *= 0.5f;
     }
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) beta_step(beta, gu[r], gp[r]);
+    if (lo == W) store_block<8>(ck_lane + (nb - 1) * ck_stride, beta);
     normalize(beta);
   }
 
-  float alpha[8];
+  // ---- backward sweep, rows W-1 .. R: block i covers nodes [lo, lo + R),
+  // lo = W - (i+1) R; beta at lo is checkpoint lo/R - 1. The block at
+  // lo = 0 is not run: no LLR reads its betas. ----
+  float cu[R], cp[R], nu[R], np[R];
+  load_block<R>(gu_row + W - R, cu);
+  load_rows<R>(pb + (W - R) * Ll, Ll, cp);
+  for (int i = 0; i < nb - 1; ++i) {
+    const int lo = W - (i + 1) * R;
+    load_block<R>(gu_row + lo - R, nu);    // the next block, in flight
+    load_rows<R>(pb + (lo - R) * Ll, Ll, np);
 #pragma unroll
-  for (int s = 0; s < 8; ++s) alpha[s] = 0.f;
-  for (int i = 0; i < U / R; ++i) {
+    for (int r = R - 1; r >= 0; --r) beta_step(beta, 0.5f * cu[r], cp[r]);
+    store_block<8>(ck_lane + (lo / R - 1) * ck_stride, beta);
+    normalize(beta);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int t = i * R + r;
-      alpha_step(alpha, guf[t * Ll + lane], gpf[t * Ll + lane]);
-    }
-    normalize(alpha);
+    for (int r = 0; r < R; ++r) { cu[r] = nu[r]; cp[r] = np[r]; }
   }
-  if (lane % n_w == 0) {
+
+  // ---- alpha warm-up over the previous window's tail ----
+  float alpha[8];
+  if (w == 0) {
     alpha[0] = 0.f;
 #pragma unroll
     for (int s = 1; s < 8; ++s) alpha[s] = NEG;
+  } else {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) alpha[s] = 0.f;
+    for (int i = 0; i < U / R; ++i) {
+      float gu[R], gp[R];
+      load_block<R>(gu_row - U + i * R, gu);
+      load_rows<R>(pf + i * R * Ll, Ll, gp);
+#pragma unroll
+      for (int r = 0; r < R; ++r) alpha_step(alpha, 0.5f * gu[r], gp[r]);
+      normalize(alpha);
+    }
   }
 
-  for (int i = 0; i < W / R; ++i) {
+  // ---- forward sweep: block j covers nodes [jR, jR + R) and reads beta
+  // at nodes jR + 1 .. jR + R, recomputed from checkpoint j ----
+  float ckv[8], nck[8];
+  load_block<R>(gu_row, cu);
+  load_rows<R>(pb, Ll, cp);
+  load_block<8>(ck_lane, ckv);
+  for (int j = 0; j < nb; ++j) {
+    const int jn = j + 1 < nb ? j + 1 : j;   // the next block, in flight
+    load_block<R>(gu_row + jn * R, nu);
+    load_rows<R>(pb + jn * R * Ll, Ll, np);
+    load_block<8>(ck_lane + jn * ck_stride, nck);
+
+    float bv[R][8];                          // bv[r]: beta at node jR + r + 1
+    float b[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) b[s] = bv[R - 1][s] = ckv[s];
+    normalize(b);                            // the state carried from node (j+1) R
+#pragma unroll
+    for (int r = R - 2; r >= 0; --r) {
+      beta_step(b, 0.5f * cu[r + 1], cp[r + 1]);
+#pragma unroll
+      for (int s = 0; s < 8; ++s) bv[r][s] = b[s];
+    }
+
+    float o[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int tau = i * R + r;
-      const float gu = gub[tau * Ll + lane];
-      const float gp = gpb[tau * Ll + lane];
-      float bn[8];
-#pragma unroll
-      for (int s = 0; s < 8; ++s) bn[s] = scr[((long long)(tau + 1) * 8 + s) * Ll + lane];
+      const float gu = 0.5f * cu[r];
+      const float gp = cp[r];
       float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
       for (int s = 0; s < 8; ++s) {
         const float gpt = par0(s) ? -gp : gp;
-        m0 = fmaxf(m0, (alpha[s] + gpt) + bn[next0(s)]);
-        m1 = fmaxf(m1, (alpha[s] - gpt) + bn[next1(s)]);
+        m0 = fmaxf(m0, (alpha[s] + gpt) + bv[r][next0(s)]);
+        m1 = fmaxf(m1, (alpha[s] - gpt) + bv[r][next1(s)]);
       }
-      out[tau * Ll + lane] = (m0 + gu) - (m1 - gu);
-      alpha_step(alpha, guf[(U + tau) * Ll + lane], gpf[(U + tau) * Ll + lane]);
+      o[r] = (m0 + gu) - (m1 - gu);
+      alpha_step(alpha, gu, gp);
     }
     normalize(alpha);
+    store_block<R>(o_row + j * R, o);
+#pragma unroll
+    for (int r = 0; r < R; ++r) { cu[r] = nu[r]; cp[r] = np[r]; }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) ckv[s] = nck[s];
   }
 }
 
 }  // namespace
 
-// guf, gpf, gub, gpb: [W+U, L] float32 t-major frames; out: [W, L];
-// scr: [(W+U) * 8 * L] float32. Returns cudaGetLastError().
-extern "C" int turbo_half_iter_v1_launch(const void* guf, const void* gpf,
-                                         const void* gub, const void* gpb,
-                                         void* out, void* scr, int L, int n_w,
-                                         int W, int U, int R, void* stream) {
-  if (L <= 0 || n_w <= 0 || L % n_w != 0 || W <= 0 || U <= 0 || U > W ||
-      W % R != 0 || U % R != 0)
+// lin, out: [B, n_w * W] float32 rows, 16-byte aligned when R % 4 == 0; gpf,
+// gpb: [W + U, B * n_w] float32 t-major parity frames; scr: the checkpoints,
+// [(W / R) * B * n_w * 8] float32. Returns cudaGetLastError().
+extern "C" int turbo_half_iter_v1_launch(const void* lin, const void* gpf,
+                                         const void* gpb, void* out, void* scr,
+                                         int B, int n_w, int W, int U, int R,
+                                         void* stream) {
+  const int L = B * n_w;
+  if (L <= 0 || W <= 0 || U <= 0 || U > W || W % R != 0 || U % R != 0)
     return (int)cudaErrorInvalidValue;
   const dim3 block(128), grid((L + 127) / 128);
   cudaStream_t st = (cudaStream_t)stream;
-  const float* a = (const float*)guf;
+  const float* a = (const float*)lin;
   const float* b = (const float*)gpf;
-  const float* c = (const float*)gub;
-  const float* d = (const float*)gpb;
+  const float* c = (const float*)gpb;
   float* o = (float*)out;
   float* s = (float*)scr;
   switch (R) {
-    case 8: turbo_half_iter_v1_kernel<8><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
-    case 4: turbo_half_iter_v1_kernel<4><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
-    case 2: turbo_half_iter_v1_kernel<2><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
-    case 1: turbo_half_iter_v1_kernel<1><<<grid, block, 0, st>>>(a, b, c, d, o, s, L, n_w, W, U); break;
+    case 8: turbo_half_iter_v1_kernel<8><<<grid, block, 0, st>>>(a, b, c, o, s, n_w, W, U, L); break;
+    case 4: turbo_half_iter_v1_kernel<4><<<grid, block, 0, st>>>(a, b, c, o, s, n_w, W, U, L); break;
+    case 2: turbo_half_iter_v1_kernel<2><<<grid, block, 0, st>>>(a, b, c, o, s, n_w, W, U, L); break;
+    case 1: turbo_half_iter_v1_kernel<1><<<grid, block, 0, st>>>(a, b, c, o, s, n_w, W, U, L); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -16,6 +16,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("turbo_half_iter.cu", "mrc_llr.cu")
@@ -41,15 +43,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.turbo_half_iter_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.turbo_half_iter_launch.restype = i
-    lib.mrc_llr_launch.argtypes = [p, p, p, p, ctypes.c_longlong,
-                                   ctypes.c_longlong, i, i, p]
+    ll, f = ctypes.c_longlong, ctypes.c_float
+    lib.mrc_llr_launch.argtypes = [p, p, p, f, p] + [ll] * 10 + [i, i, p]
     lib.mrc_llr_launch.restype = i
-    ll = ctypes.c_longlong
-    lib.demap_llr_launch.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+    lib.demap_llr_launch.argtypes = [p, p, f, p] + [ll] * 6 + [i, p]
     lib.demap_llr_launch.restype = i
-    lib.turbo_half_iter_v1_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                              i, p]
+    lib.turbo_half_iter_v1_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.turbo_half_iter_v1_launch.restype = i
+    lib.empty_launch.argtypes = [p]
+    lib.empty_launch.restype = i
 
 
 def load() -> ctypes.CDLL:
@@ -80,6 +82,12 @@ def load() -> ctypes.CDLL:
                       ptxas=log, flags=" ".join(NVCC_FLAGS))
     _lib = lib
     return lib
+
+
+def stream_of(t) -> int:
+    """The handle of PyTorch's current stream on t's device: where a kernel
+    that reads t launches."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(err: int, name: str) -> None:

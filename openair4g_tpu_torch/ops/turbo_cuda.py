@@ -8,8 +8,11 @@ is not the XLA oracle `turbo._half_iteration`, whose beta at a window's
 last node is the neighbouring window's converged beta, so the two differ
 at window-end nodes (by about 1 on random inputs). The v1 kernel
 (`prep_parity` + `half_iteration_pallas_prepped`) is `prep_parity` +
-`half_iteration_prepped`: the same half-iteration from window-replicated
-t-major frames, which differs from v2 only in rounding at window ends.
+`half_iteration_prepped`: the same half-iteration with the parity given as
+window-replicated t-major frames, built once a decode; it differs from v2
+only in rounding at window ends. Both kernels keep one beta checkpoint per
+renormalization block in a scratch the wrapper allocates and read lin
+[B, N] where it lies: a call is one launch.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ def pick_unroll(W: int, U: int) -> int:
 
 
 def scratch_numel(L: int, W: int, U: int) -> int:
-    """Floats of the v2 kernel's scratch for L lanes: one beta checkpoint
+    """Floats of either kernel's scratch for L lanes: one beta checkpoint
     (8 metrics) per lane and renormalization block, [W / R, L, 8]."""
     return W // pick_unroll(W, U) * L * 8
 
@@ -138,30 +141,22 @@ def half_iteration_ref(lin, lp, W: int, U: int):
     return out.reshape(W, B, n_w).permute(1, 2, 0).reshape(B, N)
 
 
-def _half_iteration_ckpt_ref(lin, lp, W: int, U: int):
-    """The v2 kernel's order of work in plain PyTorch, for the tests. The
-    backward sweep keeps one beta checkpoint per R nodes (beta at node p
-    before its block's renormalization; at node W the warm-up's carried
-    state) and skips its last block; each forward block recomputes its R
-    betas from its checkpoint ahead of its LLRs and alpha steps. Equal to
-    half_iteration_ref bit for bit."""
-    _check_args(lin, lp, W, U)
-    B, N = lin.shape
-    n_w = N // W
-    L = B * n_w
-    R = pick_unroll(W, U)
+def _ckpt_sweeps(gu, gp, hu, hp, tu, tp, n_w: int, R: int, v1: bool):
+    """The kernels' order of work in plain PyTorch on lane-major rows: gu,
+    gp [L, W] each window's gammas, hu, hp [L, U] the next window's head,
+    tu, tp [L, U] the previous window's tail. The backward sweep keeps one
+    beta checkpoint per R nodes (beta at node p before its block's
+    renormalization; at node W the warm-up's carried state in v2, the value
+    before that renormalization in v1) and skips its last block; each
+    forward block recomputes its R betas from its checkpoint ahead of its
+    LLRs and alpha steps. Returns the LLRs [L, W]."""
+    L, W = gu.shape
+    U = hu.shape[1]
     nb = W // R
-    dev = lin.device
+    dev = gu.device
     n0, n1, p0, p1, sz0, su_p, sz_p = (device_plan(t, dev) for t in _TABLES)
     sz0, su_p, sz_p = (x.float() for x in (sz0, su_p, sz_p))
-    gu, gp = (0.5 * g.reshape(L, W) for g in (lin, lp))    # lane-major rows
     w = torch.arange(L, device=dev)[:, None] % n_w
-
-    def head(g):        # the next window's first U nodes (BIG at the last)
-        return torch.where(w == n_w - 1, BIG, torch.roll(g[:, :U], -1, 0))
-
-    def tail(g):        # the previous window's last U nodes (0 at the first)
-        return torch.where(w == 0, 0.0, torch.roll(g[:, W - U:], 1, 0))
 
     def norm(x):
         return x - x.max(dim=1, keepdim=True).values
@@ -176,13 +171,13 @@ def _half_iteration_ckpt_ref(lin, lp, W: int, U: int):
         return torch.maximum(a[:, p0] + base, a[:, p1] - base)
 
     beta = torch.zeros(L, 8, device=dev)
-    hu, hp = head(gu), head(gp)
     for i in range(U // R):
         for t in range(U - 1 - i * R, U - 1 - (i + 1) * R, -1):
             beta = bstep(beta, hu[:, t], hp[:, t])
+        before = beta
         beta = norm(beta)
     ckpt = [None] * nb                        # ckpt[k]: beta at node (k+1) R
-    ckpt[nb - 1] = beta
+    ckpt[nb - 1] = before if v1 else beta
     for lo in range(W - R, 0, -R):
         for t in range(lo + R - 1, lo - 1, -1):
             beta = bstep(beta, gu[:, t], gp[:, t])
@@ -190,7 +185,6 @@ def _half_iteration_ckpt_ref(lin, lp, W: int, U: int):
         beta = norm(beta)
 
     alpha = torch.zeros(L, 8, device=dev)
-    tu, tp = tail(gu), tail(gp)
     for i in range(U // R):
         for t in range(i * R, (i + 1) * R):
             alpha = astep(alpha, tu[:, t], tp[:, t])
@@ -201,7 +195,7 @@ def _half_iteration_ckpt_ref(lin, lp, W: int, U: int):
 
     out = torch.empty(L, W, device=dev)
     for j in range(nb):
-        b = ckpt[j] if j == nb - 1 else norm(ckpt[j])
+        b = ckpt[j] if j == nb - 1 and not v1 else norm(ckpt[j])
         bv = [None] * R                       # bv[r]: beta at node jR + r + 1
         bv[R - 1] = ckpt[j]
         for r in range(R - 2, -1, -1):
@@ -214,6 +208,33 @@ def _half_iteration_ckpt_ref(lin, lp, W: int, U: int):
             out[:, tau] = (m0 + gu[:, tau]) - (m1 - gu[:, tau])
             alpha = astep(alpha, gu[:, tau], gp[:, tau])
         alpha = norm(alpha)
+    return out
+
+
+def _head(g, n_w: int, U: int):
+    """[L, W] lane-major rows -> the next window's first U nodes (BIG at a
+    block's last window)."""
+    w = torch.arange(g.shape[0], device=g.device)[:, None] % n_w
+    return torch.where(w == n_w - 1, BIG, torch.roll(g[:, :U], -1, 0))
+
+
+def _tail(g, n_w: int, U: int):
+    """[L, W] lane-major rows -> the previous window's last U nodes (0 at a
+    block's first window)."""
+    w = torch.arange(g.shape[0], device=g.device)[:, None] % n_w
+    return torch.where(w == 0, 0.0, torch.roll(g[:, g.shape[1] - U:], 1, 0))
+
+
+def _half_iteration_ckpt_ref(lin, lp, W: int, U: int):
+    """The v2 kernel's order of work in plain PyTorch, for the tests. Equal
+    to half_iteration_ref bit for bit."""
+    _check_args(lin, lp, W, U)
+    B, N = lin.shape
+    n_w = N // W
+    gu, gp = (0.5 * g.reshape(B * n_w, W) for g in (lin, lp))
+    out = _ckpt_sweeps(gu, gp, _head(gu, n_w, U), _head(gp, n_w, U),
+                       _tail(gu, n_w, U), _tail(gp, n_w, U), n_w,
+                       pick_unroll(W, U), v1=False)
     return out.reshape(B, N)
 
 
@@ -240,10 +261,10 @@ def half_iteration(lin, lp, W: int, U: int):
                              " (the kernel loads float4 vectors)")
     scr = torch.empty(scratch_numel(B * n_w, W, U), dtype=torch.float32,
                       device=lin.device)
-    stream = torch.cuda.current_stream(lin.device).cuda_stream
     err = lib.turbo_half_iter_launch(lin.data_ptr(), lp.data_ptr(),
                                      out.data_ptr(), scr.data_ptr(), B, n_w,
-                                     W, U, pick_unroll(W, U), stream)
+                                     W, U, pick_unroll(W, U),
+                                     kernels.stream_of(lin))
     kernels.check(err, "turbo_half_iter")
     count_launch("turbo_half_iter")
     return out
@@ -343,9 +364,26 @@ def half_iteration_prepped_ref(lin, gpf, gpb, W: int, U: int):
     return _unframe(out, B, n_w, W)
 
 
+def _half_iteration_prepped_ckpt_ref(lin, gpf, gpb, W: int, U: int):
+    """The v1 kernel's order of work in plain PyTorch, for the tests: lin
+    read in place (its head and tail from the neighbouring windows' rows),
+    the parity from the frames, a main position's from gpb only. Equal to
+    half_iteration_prepped_ref bit for bit."""
+    _check_prepped(lin, gpf, gpb, W, U)
+    B, N = lin.shape
+    n_w = N // W
+    gu = 0.5 * lin.reshape(B * n_w, W)
+    out = _ckpt_sweeps(gu, gpb[:W].t(), _head(gu, n_w, U), gpb[W:].t(),
+                       _tail(gu, n_w, U), gpf[:U].t(), n_w,
+                       pick_unroll(W, U), v1=True)
+    return out.reshape(B, N)
+
+
 def half_iteration_prepped(lin, gpf, gpb, W: int, U: int):
     """One v1 half-iteration on pre-framed parity: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. gpf and gpb must be what
+    prep_parity gives (the kernel reads a main position's parity from gpb
+    alone)."""
     args = (lin, gpf, gpb)
     if all(a.device.type == "cpu" for a in args):
         return half_iteration_prepped_ref(lin, gpf, gpb, W, U)
@@ -355,20 +393,23 @@ def half_iteration_prepped(lin, gpf, gpb, W: int, U: int):
     _check_prepped(lin, gpf, gpb, W, U)
     if any(a.dtype != torch.float32 for a in args):
         raise TypeError("half_iteration_prepped: float32 inputs required")
-    if not (gpf.is_contiguous() and gpb.is_contiguous()):
-        raise ValueError("half_iteration_prepped: contiguous frames required")
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("half_iteration_prepped: contiguous lin and frames "
+                         "required")
     B, N = lin.shape
     n_w = N // W
-    L = B * n_w
-    guf, gub = _frames(0.5 * lin, W, U, BIG)
     lib = kernels.load()
-    out = torch.empty(W, L, dtype=torch.float32, device=lin.device)
-    scr = torch.empty((W + U) * 8 * L, dtype=torch.float32, device=lin.device)
-    stream = torch.cuda.current_stream(lin.device).cuda_stream
+    out = torch.empty_like(lin)
+    for name, t in (("lin", lin), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"half_iteration_prepped: {name} is not 16-byte"
+                             " aligned (the kernel loads float4 vectors)")
+    scr = torch.empty(scratch_numel(B * n_w, W, U), dtype=torch.float32,
+                      device=lin.device)
     err = lib.turbo_half_iter_v1_launch(
-        guf.data_ptr(), gpf.data_ptr(), gub.data_ptr(), gpb.data_ptr(),
-        out.data_ptr(), scr.data_ptr(), L, n_w, W, U, pick_unroll(W, U),
-        stream)
+        lin.data_ptr(), gpf.data_ptr(), gpb.data_ptr(), out.data_ptr(),
+        scr.data_ptr(), B, n_w, W, U, pick_unroll(W, U),
+        kernels.stream_of(lin))
     kernels.check(err, "turbo_half_iter_v1")
     count_launch("turbo_half_iter_v1")
-    return _unframe(out, B, n_w, W)
+    return out

@@ -472,16 +472,17 @@ class DlsimFading:
             return H_all[:, :, sym, sc]
 
         # MRC over the RX antennas; the estimation-error variance adds to
-        # the per-RE noise
-        llr = mrc_llr(y.transpose(1, 2).contiguous(),
-                      at(self._ds, self._dc).transpose(1, 2).contiguous(),
+        # the per-RE noise. The [B, A, N] antenna planes go in as views
+        # and are read where they lie.
+        llr = mrc_llr(y.transpose(1, 2),
+                      at(self._ds, self._dc).transpose(1, 2),
                       n0 + ev, Qm).reshape(B, -1) * self._scr_sgn
         if self.pdcch_on:
             # a missed DCI voids the round: its LLRs add nothing
             y_c = rgrid[:, self._p_sym, self._p_bin].reshape(B, A, -1)
-            llr_c = mrc_llr(y_c.transpose(1, 2).contiguous(),
-                            at(self._p_sym, self._p_sc).transpose(1, 2)
-                            .contiguous(), n0, 2).reshape(B, -1)
+            llr_c = mrc_llr(y_c.transpose(1, 2),
+                            at(self._p_sym, self._p_sc).transpose(1, 2),
+                            n0, 2).reshape(B, -1)
             found, bits, _ = dci_blind_decode(
                 llr_c * self._pd_sgn, len(self.dci_payload), cfg.rnti,
                 self.dci_cands)

@@ -98,6 +98,25 @@ def unpatch(saved: list) -> None:
         setattr(obj, attr, f)
 
 
+def profile_steps(sim, gen, n0: float, state: tuple, n: int = 3) -> tuple:
+    """torch.profiler over n unwrapped steps: (the events by key, the
+    summed device time of all device-side events in µs, the host's seconds
+    a profiled step)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            sim.step(gen, n0, *state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.self_device_time_total > 0 and e.device_type ==
+                 torch.autograd.DeviceType.CUDA)
+    return events, dev_us, wall
+
+
 def run(label: str, sim, snr: float, state: tuple, n_steps: int = 5,
         out: str | None = None) -> None:
     """`state`: the estimator arguments `step` takes after n0."""
@@ -135,18 +154,7 @@ def run(label: str, sim, snr: float, state: tuple, n_steps: int = 5,
         print(f"  {k:45s} {v / n_steps * 1e3:8.2f} ms  "
               f"{v / n_steps / synced * 100:5.1f} %  ({CNT[k] / n_steps:.0f}"
               f" calls/step)")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            sim.step(gen, n0, *state)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 3
-    events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.self_device_time_total > 0 and e.device_type ==
-                 torch.autograd.DeviceType.CUDA)
+    events, dev_us, wall = profile_steps(sim, gen, n0, state)
     print(f"  profiler: {dev_us / 3 / 1e3:.1f} ms device time per step, "
           f"{wall * 1e3:.1f} ms profiled step; busy "
           f"{dev_us / 3 / 1e6 / plain * 100:.1f} % of the unwrapped step")

@@ -20,7 +20,7 @@ from openair4g_tpu_torch.ops.turbo_cuda import (BIG, half_iteration,
                                                 half_iteration_prepped,
                                                 half_iteration_prepped_ref,
                                                 half_iteration_ref,
-                                                prep_parity)
+                                                pick_unroll, prep_parity)
 from openair4g_tpu_torch.sim.dlsim import DlsimFading, DlsimFadingConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 
@@ -80,22 +80,94 @@ def test_mrc_llr_kernel_matches_plain_version(cuda, A, Qm, n0_kind):
                                rtol=3e-4, atol=3e-4)
 
 
+def _cplx(gen, *shape, device):
+    return torch.view_as_complex(torch.randn(*shape, 2, generator=gen,
+                                             device=device))
+
+
+@pytest.mark.parametrize("Qm", [2, 4, 6])
+@pytest.mark.parametrize("A", [1, 2])
+def test_mrc_llr_kernel_layouts_agree(cuda, A, Qm):
+    """The kernel against the plain version, and equal LLRs from every
+    layout of the same REs (the same per-RE arithmetic): an even and an odd
+    count, interleaved [B, N, A] and [B, A, N] planes given as a transposed
+    view, a view of y 8 bytes off a 16-byte boundary, n0 as a number, one
+    value an RE, one a row and full shape."""
+    gen = torch.Generator(device=cuda).manual_seed(10 * A + Qm)
+    for B, N in ((3, 700), (3, 701), (130, 10)):
+        y, H = _cplx(gen, B, N, A, device=cuda), _cplx(gen, B, N, A,
+                                                       device=cuda)
+        yp, Hp = (t.transpose(1, 2).contiguous() for t in (y, H))
+        off = torch.zeros(B * N * A + 1, dtype=torch.complex64, device=cuda)
+        off[1:] = y.reshape(-1)
+        off = off[1:].view(B, N, A)                 # 8 bytes off 16
+        assert off.data_ptr() % 16 == 8
+        for n0 in (0.37, 0.05 + torch.rand(N, generator=gen, device=cuda),
+                   0.05 + torch.rand(B, 1, generator=gen, device=cuda),
+                   0.05 + torch.rand(B, N, generator=gen, device=cuda)):
+            before = launch_counts()["mrc_llr"]
+            got = mrc_llr(y, H, n0, Qm)
+            assert launch_counts()["mrc_llr"] == before + 1
+            torch.testing.assert_close(got, mrc_llr_ref(y, H, n0, Qm),
+                                       rtol=3e-4, atol=3e-4)
+            planes = mrc_llr(yp.transpose(1, 2), Hp.transpose(1, 2), n0, Qm)
+            assert planes.is_contiguous() and torch.equal(planes, got)
+            assert torch.equal(mrc_llr(off, H, n0, Qm), got)
+
+
+def test_mrc_llr_and_demap_llr_kernels_take_more_rows_than_one_grid_axis(cuda):
+    """One n0 a row of 4 REs makes blocks of 64 rows; 65,535 x 64 + 100 rows
+    are more blocks than the grid's y extent holds, so they spill into z."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rows = 65535 * 64 + 100
+    y, H = _cplx(gen, rows, 4, 1, device=cuda), _cplx(gen, rows, 4, 1,
+                                                     device=cuda)
+    n0 = 0.05 + torch.rand(rows, 1, generator=gen, device=cuda)
+    got = mrc_llr(y, H, n0, 2)
+    for part in (slice(0, 4096), slice(rows - 4096, rows)):
+        torch.testing.assert_close(got[part],
+                                   mrc_llr_ref(y[part], H[part], n0[part], 2),
+                                   rtol=3e-4, atol=3e-4)
+    x = y[..., 0]
+    got = demap_llr_fused(x, n0, 2)
+    for part in (slice(0, 4096), slice(rows - 4096, rows)):
+        torch.testing.assert_close(got[part],
+                                   demap_llr_fused_ref(x[part], n0[part], 2),
+                                   rtol=3e-4, atol=3e-4)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     y = torch.zeros(4, 3, dtype=torch.complex64, device=cuda)
     with pytest.raises(ValueError):
         mrc_llr(y, y, 1.0, 8)                       # Qm not built
     with pytest.raises(ValueError):
-        mrc_llr(y.t(), y.t(), 1.0, 2)               # not contiguous
+        mrc_llr(y.t(), y.t(), 1.0, 2)               # A = 4 not built
+    crop = torch.zeros(4, 6, 8, 2, dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError):                 # cropped in two dims:
+        mrc_llr(crop[:, :3, :5], crop[:, :3, :5], 1.0, 2)   # no rows x cols
     with pytest.raises(ValueError):
-        demap_llr_fused(y.t(), 1.0, 2)              # no one element stride
+        demap_llr_fused(crop[:, :3, :5, 0], 1.0, 2)
     with pytest.raises(ValueError):
         demap_llr_fused(y, 1.0, 8)                  # Qm not built
+    with pytest.raises(ValueError):                 # n0 on another device
+        mrc_llr(y, y, torch.ones(4), 2)
+    with pytest.raises(ValueError):
+        demap_llr_fused(y, torch.ones(4, 3), 2)
+    with pytest.raises(TypeError):
+        demap_llr_fused(y.to(torch.complex128), 1.0, 2)
     lin = torch.zeros(2, 96, device=cuda)
     with pytest.raises(TypeError):
         half_iteration(lin.double(), lin.double(), 48, 24)
     off = torch.zeros(2 * 96 + 1, device=cuda)[1:].view(2, 96)
     with pytest.raises(ValueError, match="16-byte aligned"):
         half_iteration(off, lin, 48, 24)            # float4 loads
+    gpf, gpb = prep_parity(lin, 48, 24)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        half_iteration_prepped(off, gpf, gpb, 48, 24)
+    with pytest.raises(ValueError):                 # frames of another shape
+        half_iteration_prepped(lin, gpf[:-1], gpb, 48, 24)
+    with pytest.raises(ValueError):                 # a strided frame
+        half_iteration_prepped(lin, gpf, gpb.t().contiguous().t(), 48, 24)
 
 
 def test_step_on_card_decodes_through_both_kernels(cuda):
@@ -134,18 +206,24 @@ def test_1x2_harq_step_on_card_goes_through_mrc_at_two_antennas(cuda,
 
 
 @pytest.mark.parametrize("Qm", [2, 4, 6])
-@pytest.mark.parametrize("layout", ["contiguous", "layer"])
+@pytest.mark.parametrize("layout", ["contiguous", "layer", "odd",
+                                    "unaligned"])
 def test_demap_llr_kernel_matches_plain_version(cuda, Qm, layout):
     """`layer`: x_hat[..., 1] and n0_eff[..., 1] of an MMSE output
-    [B, N, 2], read in place at element stride 2."""
+    [B, N, 2], read in place at element stride 2; `odd`: an odd count;
+    `unaligned`: a view 8 bytes off a 16-byte boundary."""
     gen = torch.Generator(device=cuda).manual_seed(Qm)
-    shape = (3, 700, 2) if layout == "layer" else (3, 700)
-    x = torch.view_as_complex(torch.randn(*shape, 2, generator=gen,
-                                          device=cuda))
+    shape = {"layer": (3, 700, 2), "odd": (3, 701)}.get(layout, (3, 700))
+    x = _cplx(gen, *shape, device=cuda)
     n0 = 0.05 + torch.rand(*shape, generator=gen, device=cuda)
     if layout == "layer":
         x, n0 = x[..., 1], n0[..., 1]
         assert not x.is_contiguous()
+    if layout == "unaligned":
+        buf = torch.zeros(x.numel() + 1, dtype=torch.complex64, device=cuda)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+        assert x.data_ptr() % 16 == 8
     before = launch_counts()["demap_llr"]
     got = demap_llr_fused(x, n0, Qm)
     torch.cuda.synchronize()
@@ -171,22 +249,27 @@ def test_demap_llr_kernel_takes_broadcast_n0(cuda):
                                    rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.parametrize("B,W,n_w", [(64, 48, 3), (1408, 240, 24)])
-def test_turbo_v1_kernel_matches_plain_version(cuda, B, W, n_w):
+@pytest.mark.parametrize("B,W,n_w,U", [(64, 48, 3, 24), (1408, 240, 24, 24),
+                                       (5, 240, 3, 24), (5, 44, 3, 20),
+                                       (5, 42, 3, 18), (5, 45, 3, 15)])
+def test_turbo_v1_kernel_matches_plain_version(cuda, B, W, n_w, U):
+    """(5, 240, 3): 15 lanes, most of the kernel's one block masked; the
+    last three run its R = 4, 2 and 1 instances. One call is one launch."""
     gen = torch.Generator(device=cuda).manual_seed(W)
     lin = 3.0 * torch.randn(B, W * n_w, generator=gen, device=cuda)
     lp = 3.0 * torch.randn(B, W * n_w, generator=gen, device=cuda)
     lin[:, -7:] = BIG
     lp[:, -7:] = BIG
-    gpf, gpb = prep_parity(lp, W, 24)
+    gpf, gpb = prep_parity(lp, W, U)
     before = launch_counts()["turbo_half_iter_v1"]
-    got = half_iteration_prepped(lin, gpf, gpb, W, 24)
+    got = half_iteration_prepped(lin, gpf, gpb, W, U)
     torch.cuda.synchronize()
     assert launch_counts()["turbo_half_iter_v1"] == before + 1
-    # same float32 operations in the same order
+    assert pick_unroll(W, U) == {240: 8, 48: 8, 44: 4, 42: 2, 45: 1}[W]
+    # same float32 operations in the same order: equal bit for bit
     torch.testing.assert_close(
-        got, half_iteration_prepped_ref(lin, gpf, gpb, W, 24),
-        rtol=0, atol=1e-4)
+        got, half_iteration_prepped_ref(lin, gpf, gpb, W, U),
+        rtol=0, atol=0)
 
 
 def test_tm3_step_on_card_goes_through_demap_kernel(cuda):

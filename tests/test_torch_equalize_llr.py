@@ -11,7 +11,8 @@ from openair4g_tpu.ops.equalize_llr import mrc_llr_pallas
 from openair4g_tpu.ops.llr import demap_llr as j_demap_llr
 from openair4g_tpu.phy.equalize import mrc_equalize as j_mrc_equalize
 from openair4g_tpu_torch.device import launch_counts
-from openair4g_tpu_torch.ops.equalize_llr import (_n0_operand, mrc_llr,
+from openair4g_tpu_torch.ops.equalize_llr import (_n0_view, _rows_cols,
+                                                  mrc_llr,
                                                   mrc_llr_ref)
 
 # The suite runs in several pytest workers on the host's cores; torch's own
@@ -52,16 +53,25 @@ def test_matches_pallas_and_two_stage_oracle(A, Qm, n0_kind):
 
 
 def test_n0_operand_broadcasts_without_copy_where_it_can():
+    """A number stays a number (a kernel argument); a tensor becomes a view
+    of the leading shape that the rows x cols split walks without a copy."""
     lead = (4, 5)
-    assert _n0_operand(0.5, lead, "cpu").shape == (1,)
-    per_re = torch.arange(5.0)
-    op = _n0_operand(per_re, lead, "cpu")            # period 5: no copy
-    assert op.shape == (5,) and torch.equal(op, per_re)
-    full = torch.rand(4, 5)
-    assert torch.equal(_n0_operand(full, lead, "cpu"), full.reshape(-1))
-    col = torch.rand(4, 1)                           # not trailing: expand
-    assert torch.equal(_n0_operand(col, lead, "cpu"),
-                       col.expand(4, 5).reshape(-1))
+    assert _n0_view(0.5, lead, "cpu") == (None, 0.5)
+    assert _n0_view(np.float32(0.25), lead, "cpu") == (None, 0.25)
+    y_strides = (5, 1)
+    for n0, rows_cols, walk in (
+            (torch.arange(5.0), (4, 5), (0, 1)),         # one value an RE
+            (torch.rand(4, 5), (1, 20), (0, 1)),         # full shape
+            (torch.rand(4, 1), (4, 5), (1, 0)),          # one value a row
+            (torch.tensor(0.3), (1, 20), (0, 0)),        # a 0-dim tensor
+            (torch.rand(4, 10)[:, ::2], (1, 20), (0, 2))):
+        view, scalar = _n0_view(n0, lead, "cpu")
+        assert scalar == 0.0 and view.shape == lead
+        assert view.untyped_storage().data_ptr() \
+            == n0.untyped_storage().data_ptr()
+        rows, cols, walks = _rows_cols(lead, (y_strides, view.stride()))
+        assert (rows, cols) == rows_cols and walks[1] == walk, (n0.shape,
+                                                                 walks)
 
 
 def test_wrapper_rejects_other_devices():

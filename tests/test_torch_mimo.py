@@ -29,7 +29,7 @@ from openair4g_tpu.utils.rng import host_keys
 from openair4g_tpu_torch.config import FrameParms
 from openair4g_tpu_torch.convert import wiener_stack_from_reference
 from openair4g_tpu_torch.device import launch_counts
-from openair4g_tpu_torch.ops.equalize_llr import (_element_stride,
+from openair4g_tpu_torch.ops.equalize_llr import (_one_stride,
                                                   demap_llr_fused,
                                                   demap_llr_fused_ref)
 from openair4g_tpu_torch.ops.turbo_cuda import (BIG, half_iteration_prepped,
@@ -284,7 +284,8 @@ def test_demap_llr_fused_matches_reference_and_pallas(Qm):
     xs = _cplx(rng, 2, 300, 2)
     n0s = rng.uniform(0.05, 2.0, (2, 300, 2)).astype(np.float32)
     x, n0 = _t(xs)[..., 1], _t(n0s)[..., 1]
-    assert not x.is_contiguous() and _element_stride(x) == 2
+    assert not x.is_contiguous() \
+        and _one_stride(x.shape, x.stride()) == 2
     got = demap_llr_fused(x, n0, Qm)
     assert torch.equal(got, demap_llr_fused_ref(x, n0, Qm))
     xj, n0j = jnp.asarray(xs[..., 1]), jnp.asarray(n0s[..., 1])
@@ -299,15 +300,18 @@ def test_demap_llr_fused_matches_reference_and_pallas(Qm):
 
 
 def test_element_stride_and_demap_device_rule():
+    def one(t):
+        return _one_stride(t.shape, t.stride())
     t = torch.zeros(4, 6, 2)
-    assert _element_stride(t) == 1
-    assert _element_stride(t[..., 0]) == 2
-    assert _element_stride(t[:, :3, 0]) is None
-    assert _element_stride(t.transpose(0, 1)) is None
-    # a broadcast view (stride 0) has no one stride: it goes through
-    # _n0_operand instead
-    assert _element_stride(torch.zeros(()).expand(4, 6)) is None
-    assert _element_stride(torch.zeros(6).expand(4, 6)) is None
+    assert one(t) == 1
+    assert one(t[..., 0]) == 2
+    assert one(t[:, :3, 0]) is None
+    assert one(t.transpose(0, 1)) is None
+    # a broadcast view walks at stride 0, one value a row at no one stride
+    # (the kernel then takes it as rows x cols)
+    assert one(torch.zeros(()).expand(4, 6)) == 0
+    assert one(torch.zeros(6).expand(4, 6)) is None
+    assert one(torch.zeros(4, 1, 1)) == 1 and one(torch.zeros(1, 1)) == 0
     x = torch.zeros(2, 8, dtype=torch.complex64)
     before = launch_counts()["demap_llr"]
     demap_llr_fused(x, 0.5, 2)
