@@ -62,15 +62,34 @@ Phases, in order; any failure raises and the script exits non-zero:
  15. DlsimAwgn at bench.py's second configuration (BLER at most 0.01 at
      1 dB) and the dlsim command line on the card (-g EVA -r 4, -x 2),
      each writing a reference-schema CSV under build/;
- 16. the device time of every kernel at each shape phases 3, 6, 7 and 11
-     timed, by torch.profiler's device-side events (the kernel alone,
-     without the host's enqueue time that CUDA events around
-     back-to-back calls of a few-µs kernel measure), each beside the
+ 17. the v2 turbo kernel at the full-width uplink shape (1,024 x 5,760)
+     against its plain version: equal bit for bit;
+ 18. small uplink inputs (Ulsim, batch 8) in every mode of the uplink
+     tests (data only over 2 HARQ rounds, UCI on the Reed-Muller and on
+     the convolutional path, type-1 and type-2 frequency hopping, the
+     time-domain FIR channel, the genie channel with hopping), card
+     against CPU on the same draws: every round's flags, errs, reach and
+     UCI error counts must be equal;
+ 19. the full-width uplink: Ulsim 100 PRB, MCS 20, EVA, estimated DMRS
+     channel, 4 HARQ rounds, batch 128, UCI of 30 CQI bits, RI and 2 ACK
+     bits; at 30 dB every TB and UCI field decodes, at UL_MID_SNR round 0
+     fails for 20-80 % of the TBs and round 1 for fewer; step time, TB
+     trials/s and the v2 kernel's launches in one step;
+ 20. the uplink ladder anchors of tests/test_bler_anchor.py in their
+     bands, and four ulsim_campaign.json points beside the port's BLER
+     over 2,048 trials;
+ 21. Pucchsim at the operating points of tests/test_pucch.py, card
+     against CPU on the same draws, and the pucchsim command line;
+ 16. (run last) the device time of every kernel at each shape phases 3,
+     6, 7, 11 and 17 timed, by torch.profiler's device-side events (the
+     kernel alone, without the host's enqueue time that CUDA events
+     around back-to-back calls of a few-µs kernel measure), each beside the
      launch floor, the device time of an empty <<<1, 32>>> kernel of the
      same library (kernels of different names share a profiler session);
      then the device kernels, copies and fills of one v1
      call, which must be its one kernel; then the device time a step of
-     phase 13's path. It runs last: the profiler is started after every
+     phase 13's and phase 19's paths, with the v2 kernel's share of the
+     uplink step's. It runs last: the profiler is started after every
      path has run, so no path is timed in a process that has held a
      profiling session.
 Each path is driven with the launch counts set to 0 just before it and
@@ -78,8 +97,9 @@ read just after; every kernel must have launched on its path (v1, which
 no path runs, in its own timed run). Each phase prints its seconds. Ends
 with a JSON line of the kernels (launches on the paths, launches per
 flagship step, error, times, and the bound: the least time the card could
-take for the same work, from its bytes or operations), then the device
-JSON line. It needs a CUDA device and imports nothing of JAX.
+take for the same work, from its bytes or operations; the v2 kernel has a
+second row at the uplink shape, with the uplink paths' launches), then
+the device JSON line. It needs a CUDA device and imports nothing of JAX.
 """
 import functools
 import json
@@ -111,6 +131,10 @@ from openair4g_tpu_torch.sim.harness import dlsim_main
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 from openair4g_tpu_torch.sim.phase_split import profile_steps
+from openair4g_tpu_torch.ops.uci import UciConfig
+from openair4g_tpu_torch.sim.pucchsim import Pucchsim, PucchsimConfig
+from openair4g_tpu_torch.sim.pucchsim import main as pucchsim_main
+from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 
 # Flagship shapes: 128 subframes x 11 code blocks of K = 5632 decode as
 # 1,408 rows of N = 5760 (24 windows of W = 240); 15,000 data REs and
@@ -229,13 +253,15 @@ def _device_events(fn) -> list:
             and e.self_device_time_total > 0]
 
 
-def device_times(timings: list, one_launch: tuple, dd: tuple) -> None:
+def device_times(timings: list, one_launch: tuple, dd: tuple,
+                 ul: tuple) -> dict:
     """Phase 16: the launch floor (an empty <<<1, 32>>> kernel of the
     library) and each (label, fn, kernel name, row) that the kernel checks
     queued, timed by _device_ms (the row, if any, takes it as device_ms);
     the device events of one call of one_launch = (label, fn, kernel name),
     which must be that kernel once and nothing else; the device time a step
-    of dd = (sim, SNR)."""
+    of dd = (sim, SNR) and of the full-width uplink ul = (sim, SNR), with
+    the v2 kernel's share of the uplink step's."""
     lib = kernels.load()
     stream = torch.cuda.current_stream().cuda_stream
     items = [(lambda: kernels.check(lib.empty_launch(stream), "empty"),
@@ -272,6 +298,27 @@ def device_times(timings: list, one_launch: tuple, dd: tuple) -> None:
     print(f"dd 1x2 100 PRB, 4 rounds: {dev_us / n_steps / 1e3:.2f} ms device "
           f"time a step over {n_steps} profiled steps ({wall * 1e3:.1f} ms a "
           f"profiled step on the host)", flush=True)
+
+    sim, snr = ul
+    n0 = 10.0 ** (-snr / 10.0)
+    gen = torch.Generator(device=sim.device).manual_seed(5)
+    events, dev_us, wall = profile_steps(sim, gen, n0, (sim.wiener(snr),),
+                                         n=n_steps)
+    v2 = [(e.count, e.self_device_time_total) for e in events
+          if "turbo_half_iter_kernel<" in e.key.replace(" ", "")
+          and e.self_device_time_total > 0]
+    v2_n, v2_us = sum(c for c, _ in v2), sum(us for _, us in v2)
+    out = {"step_device_ms": dev_us / n_steps / 1e3,
+           "kernel_device_ms_per_step": v2_us / n_steps / 1e3,
+           "kernel_share": v2_us / dev_us if dev_us else 0.0,
+           "profiled_step_ms": wall * 1e3}
+    print(f"uplink 100 PRB MCS 20 EVA 4 rounds at {snr} dB: "
+          f"{out['step_device_ms']:.2f} ms device time a step over {n_steps} "
+          f"profiled steps, the v2 kernel {out['kernel_device_ms_per_step']:.2f}"
+          f" ms of it ({out['kernel_share']:.1%}, {v2_n} launches seen); "
+          f"{out['profiled_step_ms']:.1f} ms a profiled step on the host",
+          flush=True)
+    return out
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -1004,6 +1051,244 @@ def entry_point(dev) -> int:
     return n_turbo
 
 
+# The uplink's turbo shape at full width: 128 subframes x 8 code blocks of
+# K = 5504 decode as 1,024 rows of N = 5,760 (24 windows of W = 240).
+UL_TURBO_ROWS = BATCH * 8
+
+
+def check_turbo_uplink(dev, gen, timings) -> dict:
+    """The v2 kernel at the full-width uplink shape against its plain
+    version: equal bit for bit."""
+    N = TURBO_W * TURBO_NW
+    lin = 3.0 * torch.randn(UL_TURBO_ROWS, N, generator=gen, device=dev)
+    lp = 3.0 * torch.randn(UL_TURBO_ROWS, N, generator=gen, device=dev)
+    lin[:, -TURBO_W // 2:] = 1e4
+    lp[:, -TURBO_W // 2:] = 1e4
+    got = half_iteration(lin, lp, TURBO_W, TURBO_U)
+    want = half_iteration_ref(lin, lp, TURBO_W, TURBO_U)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    kernel = functools.partial(half_iteration, lin, lp, TURBO_W, TURBO_U)
+    ms = _time_ms(kernel, 20)
+    plain = _time_ms(lambda: half_iteration_ref(lin, lp, TURBO_W, TURBO_U), 3)
+    bound = _bound(3 * 4 * UL_TURBO_ROWS * N,
+                   TURBO_OPS_PER_POS * UL_TURBO_ROWS * N)
+    print(f"turbo_half_iter uplink [{UL_TURBO_ROWS}, {N}] W={TURBO_W} "
+          f"U={TURBO_U}: max|diff| {err:.3g} (tol {TURBO_ATOL}); kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} "
+          f"ms ({bound['bound_by']})", flush=True)
+    if not err <= TURBO_ATOL:
+        raise AssertionError(f"turbo kernel at the uplink shape disagrees: "
+                             f"{err}")
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound}
+    timings.append(("turbo_half_iter uplink", kernel,
+                    "turbo_half_iter_kernel<", row))
+    return row
+
+
+def _uplink_counts(counts: dict, what: str) -> None:
+    """The uplink runs the v2 kernel and, as the reference's receiver does,
+    the plain demap: neither mrc_llr nor demap_llr."""
+    if counts["turbo_half_iter"] == 0 or counts["mrc_llr"] \
+            or counts["demap_llr"] or counts["turbo_half_iter_v1"]:
+        raise AssertionError(f"{what}: launches {counts}")
+
+
+# The modes of tests/test_torch_ulsim.py and test_torch_ulsim_channels.py,
+# at their sizes; the UCI modes again at an SNR where UCI fields fail.
+_SMALL_UL = [
+    ("data AWGN, 2 rounds", dict(mcs=16, n_rb=6, n_rb_alloc=6,
+                                 channel="AWGN", n_harq_rounds=2), None),
+    ("UCI RM AWGN", dict(mcs=12, n_rb=6, n_rb_alloc=6, channel="AWGN",
+                         uci=UciConfig(o_cqi=8, o_ri=1, o_ack=2)), -6.0),
+    ("UCI CC EVA, 2 rounds", dict(mcs=10, n_rb=6, n_rb_alloc=6,
+                                  channel="EVA", n_harq_rounds=2,
+                                  uci=UciConfig(o_cqi=20, o_ack=1)), -2.0),
+    ("hopping type 1 EVA", dict(mcs=10, n_rb=25, n_rb_alloc=6, rb_offset=2,
+                                channel="EVA", hopping_bits=0), None),
+    ("hopping type 2 AWGN", dict(mcs=10, n_rb=25, n_rb_alloc=4, rb_offset=3,
+                                 channel="AWGN", hopping_bits=1, n_sb=2,
+                                 n_rb_ho=1), None),
+    ("time-domain EVA, 2 rounds", dict(mcs=10, n_rb=6, n_rb_alloc=6,
+                                       channel="EVA", n_harq_rounds=2,
+                                       time_domain_channel=True), None),
+    ("perfect CE, hopping EVA", dict(mcs=10, n_rb=25, n_rb_alloc=6,
+                                     rb_offset=2, channel="EVA",
+                                     hopping_bits=0, perfect_ce=True), None),
+]
+
+
+def check_small_uplink(dev) -> int:
+    """Batch 8, decoder window 240 on both sides: every Ulsim mode, card
+    (kernels) against CPU (plain versions) on the same draws; every
+    round's flags, the errs and reach, the UCI error counts."""
+    B = 8
+    reset_launch_counts()
+    for name, case, low in _SMALL_UL:
+        cfg = UlsimConfig(batch=B, n_turbo_iter=4, decoder_window=240, **case)
+        cpu, gpu = Ulsim(cfg, device="cpu"), Ulsim(cfg, device=dev)
+        txt = []
+        for snr in (30.0,) + ((low,) if low is not None else ()):
+            draws = cpu.draw(torch.Generator().manual_seed(21))
+            n0 = 10.0 ** (-snr / 10.0)
+            a = cpu.trial(*draws, n0, cpu.wiener(snr))
+            b = gpu.trial(*draws, n0, gpu.wiener(snr))
+            for field in ("ok", "errs", "reach", "uci_errs"):
+                x, y = getattr(a, field), getattr(b, field).cpu()
+                if not torch.equal(x, y):
+                    raise AssertionError(f"small uplink {name} at {snr} dB: "
+                                         f"{field} {x} (CPU) vs {y}")
+            if snr == 30.0 and (int(a.errs.sum()) or int(a.uci_errs.sum())):
+                raise AssertionError(f"small uplink {name} at 30 dB: errs "
+                                     f"{a.errs}, UCI errors {a.uci_errs}")
+            if snr != 30.0 and not int(a.uci_errs.sum()):
+                raise AssertionError(f"small uplink {name} at {snr} dB: no "
+                                     "UCI field failed")
+            txt.append(f"{snr} dB errs {a.errs.tolist()} reach "
+                       f"{a.reach.tolist()} UCI errors {a.uci_errs.tolist()}")
+        print(f"small uplink {name} B={B}: {'; '.join(txt)}; equal on card "
+              f"and CPU", flush=True)
+    counts = launch_counts()
+    print(f"launches over the small uplink runs: {counts}", flush=True)
+    _uplink_counts(counts, "small uplink")
+    return counts["turbo_half_iter"]
+
+
+# The full-width uplink: 100 PRB, MCS 20 (16QAM, TBS 43,816, 8 code blocks
+# of K = 5,504, the top rate of UE categories 1-4), EVA, estimated DMRS
+# channel, 4 HARQ rounds, batch 128, an aperiodic mode 3-0 CQI report at
+# 20 MHz (30 bits: the CRC8, convolutional code and Viterbi path) with RI
+# and 2 ACK bits. UL_MID_SNR: round 0 fails for 20-80 % of the TBs there
+# (found on the card).
+UL_FULL = dict(mcs=20, n_rb=100, n_rb_alloc=100, channel="EVA",
+               n_harq_rounds=4, batch=BATCH,
+               uci=UciConfig(o_cqi=30, o_ri=1, o_ack=2))
+UL_MID_SNR = 16.0
+
+
+def uplink_full_width(dev) -> tuple:
+    """30 dB (every TB and UCI field decodes) and UL_MID_SNR (round-0 BLER
+    in [0.2, 0.8], a HARQ gain), synced step time and TB trials/s, and the
+    v2 kernel's launches in one step."""
+    sim = Ulsim(UlsimConfig(**UL_FULL), device=dev)
+    sim.run_snr(30.0, BATCH, seed=99)             # settle the allocator
+    torch.cuda.synchronize()
+    launches, out = 0, {}
+    for snr, steps in ((30.0, 2), (UL_MID_SNR, 8)):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        errs, reach = sim.run_snr(snr, steps * BATCH, seed=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        _uplink_counts(counts, f"uplink full width at {snr} dB")
+        launches += counts["turbo_half_iter"]
+        bler = errs / np.maximum(reach, 1)
+        print(f"uplink 100 PRB MCS 20 EVA 4 rounds UCI 30+1+2 at {snr} dB: "
+              f"per-round BLER {[round(float(x), 4) for x in bler]} (errs "
+              f"{errs.tolist()}, reached {reach.tolist()}), UCI errors "
+              f"[cqi, ri, ack] {sim.uci_errs.tolist()} of {reach[0]}; "
+              f"{dt / steps * 1e3:.1f} ms a step, {steps * BATCH / dt:.1f} TB "
+              f"trials/s ({steps} steps of {BATCH} x 4 rounds, {dt:.3f} s); "
+              f"turbo launches {counts['turbo_half_iter']}", flush=True)
+        out[snr] = (errs, reach, sim.uci_errs.copy())
+    errs, reach, uci = out[30.0]
+    if int(errs.sum()) or int(uci.sum()):
+        raise AssertionError(f"uplink at 30 dB: errs {errs}, UCI {uci}")
+    errs, reach, uci = out[UL_MID_SNR]
+    if not (0.2 <= errs[0] / reach[0] <= 0.8 and errs[1] < errs[0]):
+        raise AssertionError(f"uplink at {UL_MID_SNR} dB: round-0 BLER "
+                             f"{errs[0] / reach[0]} outside [0.2, 0.8] or no "
+                             f"HARQ gain {errs}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    W = sim.wiener(UL_MID_SNR)
+    reset_launch_counts()
+    sim.step(gen, 10.0 ** (-UL_MID_SNR / 10.0), W)
+    torch.cuda.synchronize()
+    per_step = launch_counts()["turbo_half_iter"]
+    print(f"uplink at {UL_MID_SNR} dB: the v2 kernel launches {per_step} "
+          "times in one step", flush=True)
+    return launches, per_step, (sim, UL_MID_SNR)
+
+
+# tests/test_bler_anchor.py's uplink ladder rows: (mcs, channel, FIR,
+# below, mid and above the knee) at 25 PRB, 128 trials each; and the
+# ulsim_campaign.json points (taken on a TPU, 2,048 trials or more) near
+# each row's mid-knee, printed beside the port's 2,048 trials.
+_UL_ANCHORS = [(4, "AWGN", False, -2.6, -1.8, -1.0),
+               (16, "AWGN", False, 7.0, 7.6, 8.3),
+               (10, "EVA", True, 2.0, 7.5, 14.5)]
+_UL_CAMPAIGN = [("awgn4", -2.0), ("awgn10", 2.75), ("awgn16", 7.5),
+                ("eva", 5.5)]
+
+
+def uplink_anchors(dev) -> int:
+    reset_launch_counts()
+    for mcs, channel, tdc, lo, mid, hi in _UL_ANCHORS:
+        sim = Ulsim(UlsimConfig(mcs=mcs, n_rb=25, n_rb_alloc=25,
+                                channel=channel, batch=BATCH,
+                                time_domain_channel=tdc), device=dev)
+        res = [sim.run_snr(snr, 128, seed=0) for snr in (lo, mid, hi)]
+        b = [e[0] / r[0] for e, r in res]
+        print(f"uplink anchor MCS {mcs} {channel}{' FIR' if tdc else ''}: "
+              f"round-0 BLER {b[0]:.4f} at {lo} dB (>= 0.7), {b[1]:.4f} at "
+              f"{mid} dB (in [0.1, 0.9]), {b[2]:.4f} at {hi} dB (<= 0.13)",
+              flush=True)
+        if not (b[0] >= 0.7 and 0.1 <= b[1] <= 0.9 and b[2] <= 0.13):
+            raise AssertionError(f"uplink anchor MCS {mcs} {channel}: {b}")
+    with open("ulsim_campaign.json") as f:
+        campaign = json.load(f)
+    for tag, snr in _UL_CAMPAIGN:
+        row = campaign[tag]
+        sim = Ulsim(UlsimConfig(mcs=row["mcs"], n_rb=row["n_rb"],
+                                n_rb_alloc=row["n_rb_alloc"],
+                                channel=row["channel"], batch=256,
+                                time_domain_channel=row[
+                                    "time_domain_channel"]), device=dev)
+        errs, reach = sim.run_snr(snr, 2048, seed=0)
+        ref = row["bler0"][row["snr"].index(snr)]
+        port = errs[0] / reach[0]
+        sd = np.sqrt(max(ref * (1 - ref), 1e-12) * 2 / 2048)
+        print(f"ulsim_campaign {tag} at {snr} dB: round-0 BLER {port:.4f} "
+              f"({errs[0]}/{reach[0]}) on the card, {ref:.4f} in the "
+              f"campaign (JAX, taken on a TPU); difference "
+              f"{(port - ref) / sd:+.2f} sd of a two-sample binomial",
+              flush=True)
+    counts = launch_counts()
+    print(f"launches over the uplink anchors: {counts}", flush=True)
+    _uplink_counts(counts, "uplink anchors")
+    return counts["turbo_half_iter"]
+
+
+# tests/test_pucch.py's operating points: (format, SNR, least and most
+# error rate over 128 trials)
+_PUCCH_POINTS = [("1a", -8.0, 0.0, 0.02), ("1a", -20.0, 0.1, 1.0),
+                 ("2", -2.0, 0.0, 0.05), ("2a", 0.0, 0.0, 0.05),
+                 ("2b", 0.0, 0.0, 0.05)]
+
+
+def pucch_points(dev) -> None:
+    """Pucchsim on the card at the operating points, card against CPU on
+    the same draws for each format, and the pucchsim command line."""
+    for fmt, snr, lo, hi in _PUCCH_POINTS:
+        sim = Pucchsim(PucchsimConfig(fmt=fmt, batch=128), device=dev)
+        r = sim.run_snr(snr, n_batches=1)
+        cpu = Pucchsim(PucchsimConfig(fmt=fmt, batch=128), device="cpu")
+        draws = cpu.draw(torch.Generator().manual_seed(4))
+        n0 = 10.0 ** (-snr / 10.0)
+        same = torch.equal(cpu.trial(*draws, n0), sim.trial(*draws, n0).cpu())
+        print(f"pucchsim {fmt} at {snr} dB: error rate {r['err_rate']:.4f} "
+              f"over {r['trials']} trials (in [{lo}, {hi}]); card equals CPU"
+              f" on the same draws: {same}", flush=True)
+        if not (lo <= r["err_rate"] <= hi and same):
+            raise AssertionError(f"pucchsim {fmt} at {snr} dB: {r}, card = "
+                                 f"CPU {same}")
+    rows = pucchsim_main(["-f", "2b", "-s", "-4", "-S", "0", "-n", "1",
+                          "--device", "cuda"])
+    if len(rows) != 3:
+        raise AssertionError(f"pucchsim command line: {rows}")
+
+
 def _phase(n: int, title: str, fn, *args):
     """Run one phase, with its number, title and seconds printed."""
     print(f"== phase {n}: {title}", flush=True)
@@ -1062,8 +1347,16 @@ def main() -> None:
     _phase(14, "SISO fidelity anchors", fidelity_anchors, dev)
     n_awgn_turbo = _phase(15, "DlsimAwgn and the dlsim command line",
                           entry_point, dev)
-    _phase(16, "device time of each kernel", device_times, timings, v1_call,
-           dd_sim)
+    turbo_ul = _phase(17, "turbo v2 kernel at the uplink shape",
+                      check_turbo_uplink, dev, gen, timings)
+    n_ul = _phase(18, "small uplink inputs, card against CPU",
+                  check_small_uplink, dev)
+    n_full, ul_per_step, ul_sim = _phase(19, "uplink full width",
+                                         uplink_full_width, dev)
+    n_ul += n_full + _phase(20, "uplink anchors", uplink_anchors, dev)
+    _phase(21, "pucchsim", pucch_points, dev)
+    ul_dev = _phase(16, "device time of each kernel (run last)", device_times,
+                    timings, v1_call, dd_sim, ul_sim)
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
     rows = [
@@ -1088,7 +1381,15 @@ def main() -> None:
              replaces="openair4g_tpu/ops/equalize_llr.py:138",
              launches=n_demap, launches_per_step=per_step["demap_llr"],
              **demap),
+        dict(name="turbo_half_iter", shape="uplink 1,024 x 5,760",
+             route="cuda",
+             source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
+             replaces="openair4g_tpu/ops/turbo_pallas.py:219",
+             launches=n_ul, launches_per_step=ul_per_step,
+             uplink_step_device_ms=ul_dev["step_device_ms"],
+             uplink_kernel_share=ul_dev["kernel_share"], **turbo_ul),
     ]
+    rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None
     print(json.dumps({"kernels": rows}))

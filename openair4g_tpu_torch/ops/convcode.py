@@ -68,6 +68,31 @@ def conv_encode_host(bits: np.ndarray) -> np.ndarray:
     return d
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_bits() -> np.ndarray:
+    """[3, 7] generator bit j of each output: the weight of u_{k-j}."""
+    return np.asarray([[(g >> (6 - j)) & 1 for j in range(7)]
+                       for g in _GENS], np.int8)
+
+
+def conv_encode_device(bits):
+    """Batched tail-biting encode. bits [B, K] {0,1} -> d [B, 3, K] int8.
+    Output i at k is the parity of sum_j g_i[j] u_{(k-j) mod K}, the
+    encoder register read circularly (its start state is the last six
+    bits), so every position is computed at once."""
+    u = bits.to(torch.int8)
+    taps = _tap_bits()
+    shifted = [torch.roll(u, j, dims=-1) for j in range(7)]   # u_{k-j}
+    d = []
+    for i in range(3):
+        acc = torch.zeros_like(u)
+        for j in range(7):
+            if taps[i, j]:
+                acc = torch.bitwise_xor(acc, shifted[j])
+        d.append(acc)
+    return torch.stack(d, dim=1)
+
+
 def _signs(bits: np.ndarray) -> np.ndarray:
     return 1.0 - 2.0 * bits.astype(np.float32)
 

@@ -38,6 +38,11 @@ def pdsch_cinit(rnti: int, q: int, ns: int, nid_cell: int) -> int:
     return (rnti << 14) + (q << 13) + ((ns >> 1) << 9) + nid_cell
 
 
+def pusch_cinit(rnti: int, ns: int, nid_cell: int) -> int:
+    """36.211 §5.3.1: c_init = rnti·2^14 + ⌊ns/2⌋·2^9 + N_ID_cell."""
+    return (rnti << 14) + ((ns >> 1) << 9) + nid_cell
+
+
 def scramble_bits(bits, seq: np.ndarray):
     """bits [B, E] {0,1} XOR the per-position sequence [E] (a simulator's
     own, uploaded once per device)."""

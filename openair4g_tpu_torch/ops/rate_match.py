@@ -173,6 +173,12 @@ def _order_to_d(folded, d_from_order: np.ndarray):
     return folded[:, idx] * device_plan(d_from_order, dev, _order_mask)
 
 
+def cc_rate_match_tx(d_flat, maps: CCRateMatchMaps):
+    """d_flat [B, 3*D] -> e [B, E]. One gather."""
+    return d_flat[:, device_plan(maps.e_src, d_flat.device,
+                                 dtype=torch.long)]
+
+
 def cc_rate_match_rx(e_llr, maps: CCRateMatchMaps):
     """e_llr [B, E] -> d stream LLRs [B, 3, D] (repetitions soft-combined)."""
     folded = _fold(e_llr, maps.L)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import FrameParms
+from ..device import device_plan
 
 # 36.101 Annex B.2 tap profiles: (delays us, powers dB).
 _SCM_C_DELAYS = (0, 0.0125, 0.0250, 0.3625, 0.3750, 0.3875, 0.2500, 0.2625,
@@ -285,6 +286,21 @@ class ChannelModel:
                               dtype=torch.complex64, device=taps.device)
         return taps @ self.tensors(taps.device)["phase"]
 
+    def freq_response_at(self, taps, f_idx: tuple):
+        """taps [..., T] -> H [..., len(f_idx)] at signed subcarrier indices
+        (an uplink allocation has no DC skip, so its caller names them)."""
+        if self.name == "AWGN":
+            return torch.ones(taps.shape[:-1] + (len(f_idx),),
+                              dtype=torch.complex64, device=taps.device)
+        return taps @ device_plan(self._phase_matrix_at(f_idx), taps.device)
+
+    @functools.lru_cache(maxsize=None)
+    def _phase_matrix_at(self, f_idx: tuple) -> np.ndarray:
+        delays_us, _ = PROFILES[self.name]
+        f_hz = np.asarray(f_idx, np.float64) * 15000.0
+        tau = np.asarray(delays_us)[:, None] * 1e-6 * self.delay_scale
+        return np.exp(-2j * np.pi * f_hz[None, :] * tau).astype(np.complex64)
+
 
 @functools.lru_cache(maxsize=None)
 def _sc_bins(fp: FrameParms, device) -> torch.Tensor:
@@ -297,6 +313,14 @@ def apply_channel_grid(grid, H, fp: FrameParms):
     """grid [B, nsym, n_fft] x H [B, n_sc] -> faded grid (exact under CP)."""
     mult = torch.zeros(H.shape[0], fp.n_fft, dtype=H.dtype, device=H.device)
     mult[:, _sc_bins(fp, H.device)] = H
+    return grid * mult[:, None, :]
+
+
+def apply_channel_bins(grid, H, bins: np.ndarray, n_fft: int):
+    """grid [B, nsym, n_fft] x H [B, len(bins)] at explicit FFT bins (a
+    static plan, uploaded once)."""
+    mult = torch.zeros(H.shape[0], n_fft, dtype=H.dtype, device=H.device)
+    mult[:, device_plan(bins, H.device, dtype=torch.long)] = H
     return grid * mult[:, None, :]
 
 

@@ -1,23 +1,25 @@
 """Phase split and device busy share of one step of each multi-antenna
-path, of the SISO 1x2 HARQ path and of the SISO flagship on a GPU.
+path, of the SISO 1x2 HARQ path, of the SISO flagship and of the
+full-width uplink on a GPU.
 
     python3 -m openair4g_tpu_torch.sim.phase_split [--out DIR]
-        [--only tm2|tm3|dd|flagship]
+        [--only tm2|tm3|dd|flagship|ul]
 
 For each of the flagship (100 PRB, MCS 26, EVA, 1 RX, joint estimation,
 round 0, 8 turbo iterations, batch 128, 24 dB), TM2 (50 PRB, MCS 25, EVA
 2x2, batch 128, 14 dB), TM3 (100 PRB, MCS 26/26, 2x2, batch 64, 40 dB)
-and the decision-directed 1x2 receiver over 4 HARQ rounds (100 PRB,
-MCS 26, EVA, CFI 2, batch 128, 14.6 dB in the dlsim SNR convention): the
-unwrapped step time over 5 steps (10 for the flagship); then the same
-steps with each phase function wrapped in
-torch.cuda.synchronize()-bracketed host timers (the names the sim modules
-imported are patched, so the sync adds to the total and nested phases are
-reported inside their parent); then torch.profiler over 3 unwrapped steps
-for the device time and busy share. With the dd path, the time-domain FIR
-channel of one round at the same shape against the per-subcarrier
-multiply, by CUDA events. With --out, each profiler table is written to
-DIR/prof_<label>.txt.
+and the decision-directed 1x2 receiver over 4 HARQ rounds (100 PRB, MCS
+26, EVA, CFI 2, batch 128, 14.6 dB in the dlsim SNR convention), and the
+uplink (Ulsim 100 PRB, MCS 20, EVA, 4 HARQ rounds, batch 128, UCI of 30
+CQI bits, RI and 2 ACK bits, 16 dB): the unwrapped step time over 5
+steps (10 for the flagship); then the same steps with each phase
+function wrapped in torch.cuda.synchronize()-bracketed host timers (the
+names the sim modules imported are patched, so the sync adds to the
+total and nested phases are reported inside their parent); then
+torch.profiler over 3 unwrapped steps for the device time and busy
+share. With the dd path, the time-domain FIR channel of one round at the
+same shape against the per-subcarrier multiply, by CUDA events. With
+--out, each profiler table is written to DIR/prof_<label>.txt.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 from ..ops import turbo as turbo_mod
 from ..phy import ofdm, pdsch
-from . import channels, dlsim, dlsim_mimo, dlsim_sm
+from ..ops.uci import UciConfig
+from . import channels, dlsim, dlsim_mimo, dlsim_sm, ulsim
 
 ACC: dict = collections.defaultdict(float)
 CNT: collections.Counter = collections.Counter()
@@ -90,6 +93,16 @@ def patch() -> list:
     p(dlsim, "dci_blind_decode", "  dci_blind_decode")
     p(dlsim, "fill_grid", "  fill_grid")
     p(dlsim, "apply_channel_grid", "    channel on the grid")
+    p(ulsim.Ulsim, "round_llrs", "HARQ round to the LLRs (Ulsim)")
+    p(ulsim.Ulsim, "_tx_symbols", "  data and UCI symbols (uci_multiplex)")
+    p(ulsim, "pusch_fill_grid_x", "  pusch_fill_grid_x (DFT spread)")
+    p(ulsim.Ulsim, "_channel", "  channel, AWGN and OFDM")
+    p(ulsim, "ul_estimate_channel", "  ul_estimate_channel")
+    p(ulsim, "scfdma_mmse_equalize", "  scfdma_mmse_equalize")
+    p(ulsim, "transform_deprecode", "  transform_deprecode (DFT)")
+    p(ulsim, "demap_llr", "  demap_llr (plain)")
+    p(ulsim.Ulsim, "_uci_errors", "UCI decode and count (round 0)")
+    p(ulsim, "cqi_decode", "  cqi_decode (CC rate dematch, Viterbi)")
     return saved
 
 
@@ -216,7 +229,7 @@ def fir_cost(sim) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler tables")
-    ap.add_argument("--only", choices=("tm2", "tm3", "dd", "flagship"),
+    ap.add_argument("--only", choices=("tm2", "tm3", "dd", "flagship", "ul"),
                     help="run one path (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -247,6 +260,12 @@ def main() -> None:
         run("dd_1x2_harq", sim, snr, (sim.wiener(snr), sim.err_var(snr)),
             out=args.out)
         fir_cost(sim)
+    if args.only in (None, "ul"):
+        sim = ulsim.Ulsim(ulsim.UlsimConfig(
+            mcs=20, n_rb=100, n_rb_alloc=100, channel="EVA",
+            n_harq_rounds=4, batch=128,
+            uci=UciConfig(o_cqi=30, o_ri=1, o_ack=2)), "cuda")
+        run("uplink", sim, 16.0, (sim.wiener(16.0),), out=args.out)
 
 
 if __name__ == "__main__":

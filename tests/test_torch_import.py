@@ -14,6 +14,8 @@ from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
                                            DlsimFading, DlsimFadingConfig)
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
+from openair4g_tpu_torch.sim.pucchsim import Pucchsim, PucchsimConfig
+from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -58,6 +60,35 @@ def test_siso_harq_slice_modules_are_among_the_checked_ones():
             "openair4g_tpu_torch.phy.channel_est"} <= names
 
 
+def test_uplink_slice_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert {"openair4g_tpu_torch.sim.ulsim",
+            "openair4g_tpu_torch.sim.pucchsim",
+            "openair4g_tpu_torch.ops.uci",
+            "openair4g_tpu_torch.phy.ulref",
+            "openair4g_tpu_torch.phy.scfdma",
+            "openair4g_tpu_torch.phy.hopping",
+            "openair4g_tpu_torch.phy.pusch",
+            "openair4g_tpu_torch.phy.power_control",
+            "openair4g_tpu_torch.phy.srs",
+            "openair4g_tpu_torch.phy.pucch",
+            "openair4g_tpu_torch.tables._ul_dmrs_phi"} <= names
+
+
+def test_pucchsim_command_line_starts_with_jax_blocked():
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['openair4g_tpu'] = None\n"
+            "sys.argv = ['pucchsim', '--help']\n"
+            "runpy.run_module('openair4g_tpu_torch.sim.pucchsim',\n"
+            "                 run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "--device" in r.stdout
+
+
 def test_dlsim_command_line_starts_with_jax_blocked():
     code = ("import runpy, sys\n"
             "sys.modules['jax'] = None\n"
@@ -76,8 +107,11 @@ def test_dlsim_command_line_starts_with_jax_blocked():
     (DlsimFading, DlsimFadingConfig(n_rb=6, batch=2)),
     (DlsimSm, DlsimSmConfig(tm=3, n_rb=6, batch=2)),
     (DlsimTxDiv, DlsimTxDivConfig(n_rb=6, batch=2)),
-    (DlsimAwgn, DlsimConfig(n_rb=6, batch=2))],
-    ids=["DlsimFading", "DlsimSm", "DlsimTxDiv", "DlsimAwgn"])
+    (DlsimAwgn, DlsimConfig(n_rb=6, batch=2)),
+    (Ulsim, UlsimConfig(n_rb=6, n_rb_alloc=6, batch=2)),
+    (Pucchsim, PucchsimConfig(batch=2))],
+    ids=["DlsimFading", "DlsimSm", "DlsimTxDiv", "DlsimAwgn", "Ulsim",
+         "Pucchsim"])
 def test_simulators_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
                                                              sim_cls, cfg):
     """device=None means the card: without one the simulator raises rather
