@@ -80,26 +80,47 @@ Phases, in order; any failure raises and the script exits non-zero:
      over 2,048 trials;
  21. Pucchsim at the operating points of tests/test_pucch.py, card
      against CPU on the same draws, and the pucchsim command line;
+ 22. small inputs of the control and sync simulators (Pdcchsim, Pbchsim,
+     Syncsim with and without CFO, CarrierScan, Prachsim RE-level,
+     restricted, format 4 and time-domain, Mbmssim with estimated CE; 25
+     PRB), card against CPU on the same draws: every decision and error
+     count equal, CFO estimates within 1e-3 subcarrier spacings;
+ 23. the v2 turbo kernel at the MBSFN full-width shape (1,024 x 6,000)
+     against its plain version: equal bit for bit;
+ 24. Mbmssim at full width: 100 PRB extended CP, MCS 22, 3 SFN cells with
+     delays to 0.8 of the CP, 8 iterations, batch 128. With the channel
+     known every TB decodes at MBMS_HIGH_SNR and BLER is in [0.05, 0.5]
+     at MBMS_MID_SNR; with the MBSFN RS estimate the reference's BLER
+     floor holds at MBMS_HIGH_SNR; step times, TB trials/s and the v2
+     kernel's launches in one step;
+ 25. the reference's control and sync anchors: tests/test_pbch_pdcch_anchor
+     .py (PBCH 25 PRB; PDCCH 100 PRB CFI 2 L = 4 and 8), the cell-search
+     and CFO points of tests/test_sync_pbch.py, prach_roc.json's four
+     configurations at threshold 15 within 3 sd, tests/test_mbms.py's two
+     link points;
+ 26. Syncsim and CarrierScan at 100 PRB and the time-domain Prachsim at
+     n_fft 2048, n_rb_ul 100: detection rates and step times;
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11 and 17 timed, by torch.profiler's device-side events (the
-     kernel alone, without the host's enqueue time that CUDA events
+     6, 7, 11, 17 and 23 timed, by torch.profiler's device-side events
+     (the kernel alone, without the host's enqueue time that CUDA events
      around back-to-back calls of a few-µs kernel measure), each beside the
      launch floor, the device time of an empty <<<1, 32>>> kernel of the
      same library (kernels of different names share a profiler session);
-     then the device kernels, copies and fills of one v1
-     call, which must be its one kernel; then the device time a step of
-     phase 13's and phase 19's paths, with the v2 kernel's share of the
-     uplink step's. It runs last: the profiler is started after every
-     path has run, so no path is timed in a process that has held a
-     profiling session.
+     then the device kernels, copies and fills of one v1 call, which must
+     be its one kernel; then the device time a step of phase 13's, 19's
+     and 24's paths, with the v2 kernel's share of the uplink and MBSFN
+     steps', and of a call of each phase 26 path. It runs last: the
+     profiler is started after every path has run, so no path is timed in
+     a process that has held a profiling session.
 Each path is driven with the launch counts set to 0 just before it and
 read just after; every kernel must have launched on its path (v1, which
 no path runs, in its own timed run). Each phase prints its seconds. Ends
 with a JSON line of the kernels (launches on the paths, launches per
 flagship step, error, times, and the bound: the least time the card could
 take for the same work, from its bytes or operations; the v2 kernel has a
-second row at the uplink shape, with the uplink paths' launches), then
-the device JSON line. It needs a CUDA device and imports nothing of JAX.
+row at the uplink shape, with the uplink paths' launches, and one at the
+MBSFN shape, with the MBSFN paths'), then the device JSON line. It needs
+a CUDA device and imports nothing of JAX.
 """
 import functools
 import json
@@ -132,8 +153,14 @@ from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 from openair4g_tpu_torch.sim.phase_split import profile_steps
 from openair4g_tpu_torch.ops.uci import UciConfig
+from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
+from openair4g_tpu_torch.sim.pbchsim import Pbchsim, PbchsimConfig
+from openair4g_tpu_torch.sim.pdcchsim import Pdcchsim, PdcchsimConfig
+from openair4g_tpu_torch.sim.prachsim import Prachsim, PrachsimConfig
 from openair4g_tpu_torch.sim.pucchsim import Pucchsim, PucchsimConfig
 from openair4g_tpu_torch.sim.pucchsim import main as pucchsim_main
+from openair4g_tpu_torch.sim.scansim import CarrierScan, ScanConfig
+from openair4g_tpu_torch.sim.syncsim import Syncsim, SyncsimConfig
 from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 
 # Flagship shapes: 128 subframes x 11 code blocks of K = 5632 decode as
@@ -253,15 +280,33 @@ def _device_events(fn) -> list:
             and e.self_device_time_total > 0]
 
 
+PROFILED_STEPS = 2
+
+
+def _step_device_time(fn) -> tuple:
+    """(device ms a call, the v2 kernel's device ms a call, its launches
+    seen, host ms a profiled call) over PROFILED_STEPS calls of fn, by
+    torch.profiler."""
+    events, dev_us, wall = profile_steps(fn, PROFILED_STEPS)
+    v2 = [e for e in events if e.self_device_time_total > 0
+          and "turbo_half_iter_kernel<" in e.key.replace(" ", "")]
+    return (dev_us / PROFILED_STEPS / 1e3,
+            sum(e.self_device_time_total for e in v2) / PROFILED_STEPS / 1e3,
+            sum(e.count for e in v2), wall * 1e3)
+
+
 def device_times(timings: list, one_launch: tuple, dd: tuple,
-                 ul: tuple) -> dict:
+                 ul: tuple, mbms: tuple, steps: list) -> tuple:
     """Phase 16: the launch floor (an empty <<<1, 32>>> kernel of the
     library) and each (label, fn, kernel name, row) that the kernel checks
     queued, timed by _device_ms (the row, if any, takes it as device_ms);
     the device events of one call of one_launch = (label, fn, kernel name),
     which must be that kernel once and nothing else; the device time a step
-    of dd = (sim, SNR) and of the full-width uplink ul = (sim, SNR), with
-    the v2 kernel's share of the uplink step's."""
+    of dd = (sim, SNR), of the full-width uplink ul = (sim, SNR) and of the
+    full-width Mbmssim mbms = ((sim, SNR) with the channel known, (sim,
+    SNR) with the MBSFN RS estimate), with the v2 kernel's share of the
+    uplink's and the Mbmssim's; then the device time a call of each (label, fn) of steps.
+    Returns the uplink's and the first Mbmssim's figures."""
     lib = kernels.load()
     stream = torch.cuda.current_stream().cuda_stream
     items = [(lambda: kernels.check(lib.empty_launch(stream), "empty"),
@@ -291,34 +336,35 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
     snr += dlsim_snr_offset_db(sim.gm)
     n0 = 10.0 ** (-snr / 10.0)
     gen = torch.Generator(device=sim.device).manual_seed(5)
-    n_steps = 2
-    _, dev_us, wall = profile_steps(sim, gen, n0,
-                                    (sim.wiener(snr), sim.err_var(snr)),
-                                    n=n_steps)
-    print(f"dd 1x2 100 PRB, 4 rounds: {dev_us / n_steps / 1e3:.2f} ms device "
-          f"time a step over {n_steps} profiled steps ({wall * 1e3:.1f} ms a "
-          f"profiled step on the host)", flush=True)
+    W, ev = sim.wiener(snr), sim.err_var(snr)
+    dev_ms, _, _, wall = _step_device_time(lambda: sim.step(gen, n0, W, ev))
+    print(f"dd 1x2 100 PRB, 4 rounds: {dev_ms:.2f} ms device time a step "
+          f"over {PROFILED_STEPS} profiled steps ({wall:.1f} ms a profiled "
+          "step on the host)", flush=True)
 
-    sim, snr = ul
-    n0 = 10.0 ** (-snr / 10.0)
-    gen = torch.Generator(device=sim.device).manual_seed(5)
-    events, dev_us, wall = profile_steps(sim, gen, n0, (sim.wiener(snr),),
-                                         n=n_steps)
-    v2 = [(e.count, e.self_device_time_total) for e in events
-          if "turbo_half_iter_kernel<" in e.key.replace(" ", "")
-          and e.self_device_time_total > 0]
-    v2_n, v2_us = sum(c for c, _ in v2), sum(us for _, us in v2)
-    out = {"step_device_ms": dev_us / n_steps / 1e3,
-           "kernel_device_ms_per_step": v2_us / n_steps / 1e3,
-           "kernel_share": v2_us / dev_us if dev_us else 0.0,
-           "profiled_step_ms": wall * 1e3}
-    print(f"uplink 100 PRB MCS 20 EVA 4 rounds at {snr} dB: "
-          f"{out['step_device_ms']:.2f} ms device time a step over {n_steps} "
-          f"profiled steps, the v2 kernel {out['kernel_device_ms_per_step']:.2f}"
-          f" ms of it ({out['kernel_share']:.1%}, {v2_n} launches seen); "
-          f"{out['profiled_step_ms']:.1f} ms a profiled step on the host",
-          flush=True)
-    return out
+    figures = []
+    for (sim, snr), label in [(ul, "uplink 100 PRB MCS 20 EVA 4 rounds")] + [
+            (m, f"Mbmssim 100 PRB MCS 22, {what},")
+            for m, what in zip(mbms, ("channel known", "MBSFN RS estimate"))]:
+        gen = torch.Generator(device=sim.device).manual_seed(5)
+        n0 = 10.0 ** (-snr / 10.0)
+        state = (sim.wiener(snr),) if sim is ul[0] else ()
+        dev_ms, v2_ms, v2_n, wall = _step_device_time(
+            lambda: sim.step(gen, n0, *state))
+        share = v2_ms / dev_ms if dev_ms else 0.0
+        print(f"{label} at {snr} dB: {dev_ms:.2f} ms device time a step over "
+              f"{PROFILED_STEPS} profiled steps, the v2 kernel {v2_ms:.2f} ms "
+              f"of it ({share:.1%}, {v2_n} launches seen); {wall:.1f} ms a "
+              "profiled step on the host", flush=True)
+        figures.append({"step_device_ms": dev_ms,
+                        "kernel_device_ms_per_step": v2_ms,
+                        "kernel_share": share, "profiled_step_ms": wall})
+    for label, fn in steps:
+        dev_ms, _, _, wall = _step_device_time(fn)
+        print(f"{label}: {dev_ms:.2f} ms device time a call over "
+              f"{PROFILED_STEPS} profiled calls; {wall:.1f} ms a profiled call"
+              " on the host", flush=True)
+    return figures[0], figures[1]
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -1086,9 +1132,10 @@ def check_turbo_uplink(dev, gen, timings) -> dict:
     return row
 
 
-def _uplink_counts(counts: dict, what: str) -> None:
-    """The uplink runs the v2 kernel and, as the reference's receiver does,
-    the plain demap: neither mrc_llr nor demap_llr."""
+def _v2_only(counts: dict, what: str) -> None:
+    """The uplink and the MBSFN paths run the v2 kernel and, as the
+    reference's receivers do, the plain demap: neither mrc_llr nor
+    demap_llr."""
     if counts["turbo_half_iter"] == 0 or counts["mrc_llr"] \
             or counts["demap_llr"] or counts["turbo_half_iter_v1"]:
         raise AssertionError(f"{what}: launches {counts}")
@@ -1150,7 +1197,7 @@ def check_small_uplink(dev) -> int:
               f"and CPU", flush=True)
     counts = launch_counts()
     print(f"launches over the small uplink runs: {counts}", flush=True)
-    _uplink_counts(counts, "small uplink")
+    _v2_only(counts, "small uplink")
     return counts["turbo_half_iter"]
 
 
@@ -1181,7 +1228,7 @@ def uplink_full_width(dev) -> tuple:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
-        _uplink_counts(counts, f"uplink full width at {snr} dB")
+        _v2_only(counts, f"uplink full width at {snr} dB")
         launches += counts["turbo_half_iter"]
         bler = errs / np.maximum(reach, 1)
         print(f"uplink 100 PRB MCS 20 EVA 4 rounds UCI 30+1+2 at {snr} dB: "
@@ -1256,7 +1303,7 @@ def uplink_anchors(dev) -> int:
               flush=True)
     counts = launch_counts()
     print(f"launches over the uplink anchors: {counts}", flush=True)
-    _uplink_counts(counts, "uplink anchors")
+    _v2_only(counts, "uplink anchors")
     return counts["turbo_half_iter"]
 
 
@@ -1287,6 +1334,448 @@ def pucch_points(dev) -> None:
                           "--device", "cuda"])
     if len(rows) != 3:
         raise AssertionError(f"pucchsim command line: {rows}")
+
+
+# ----------------------------------------------- control and sync channels --
+
+def _equal(name: str, cpu, gpu) -> None:
+    """Each pair of tensors equal on the CPU and the card."""
+    for i, (a, b) in enumerate(zip(cpu, gpu)):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"small {name}: output {i} {a} (CPU) vs "
+                                 f"{b.cpu()} (card)")
+
+
+def _no_kernel(what: str) -> None:
+    """The control and sync paths run no hand-written kernel: their LLRs
+    go through the plain demap, as the reference's do."""
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what}: launches {counts}")
+
+
+def _scan_captures(n_rb: int, B: int, snr_db: float, seed: int):
+    """[B, capture_len] captures of cell 3 * 57 + 1: the Syncsim waveform at
+    random offsets, the second half of the batch 1 subcarrier off, AWGN;
+    made on the CPU from a seed. Returns (captures, the cell's Syncsim)."""
+    sim = Syncsim(SyncsimConfig(n_rb=n_rb, nid1=57, nid2=1), device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    L = sim.search.capture_len
+    wave = sim.subframe_t
+    cap = torch.zeros(B, L, dtype=torch.complex64)
+    offs = torch.randint(0, sim.max_off, (B,), generator=gen)
+    for b, o in enumerate(offs.tolist()):
+        cap[b, o:o + wave.shape[0]] = wave
+    t = torch.arange(L)
+    cap[B // 2:] *= torch.exp(2j * np.pi / sim.fp.n_fft * t)
+    n = torch.randn(B, L, 2, generator=gen) \
+        * float(np.sqrt(0.5 * 10.0 ** (-snr_db / 10.0)))
+    return cap + torch.complex(n[..., 0], n[..., 1]), sim
+
+
+# Prachsim on every path at small size: (name, config, [SNR]); the second
+# SNR of a pair is one where some preambles are missed
+_SMALL_PRACH = [("RE level", dict(), (-12.0, -21.0)),
+                ("restricted", dict(root_u=500, ncs=15, high_speed=True),
+                 (-18.0,)),
+                ("format 4", dict(root_u=3, ncs=15, fmt=4, max_delay=6),
+                 (-8.0,)),
+                ("time domain", dict(time_domain=True, n_fft=256),
+                 (-8.0, -22.0))]
+
+
+def check_small_control(dev) -> int:
+    """Phase 22: every new simulator at 6 or 25 PRB, card against CPU on
+    the same draws (made on the CPU from a seed): every decision and
+    error count equal, soft values within the tolerance printed. Returns
+    the v2 launches of Mbmssim's runs."""
+    B = 16
+    reset_launch_counts()
+    cfg = PdcchsimConfig(n_rb=25, n_pdcch=3, L=4, batch=B)
+    cpu, gpu = Pdcchsim(cfg, device="cpu"), Pdcchsim(cfg, device=dev)
+    txt = []
+    for snr in (0.0, -8.0):
+        noise = cpu.draw(torch.Generator().manual_seed(31))
+        n0 = 10.0 ** (-snr / 10.0)
+        a = cpu.trial(noise, n0, cpu.wiener(snr))
+        _equal(f"Pdcchsim {snr} dB", a, gpu.trial(noise, n0, gpu.wiener(snr)))
+        txt.append(f"{snr} dB CFI ok {int(a[0].sum())}/{B}, DCI ok "
+                   f"{int(a[1].sum())}/{B}")
+    print(f"small Pdcchsim 25 PRB CFI 3 L=4 ({len(cpu.candidates)} "
+          f"candidates): {'; '.join(txt)}; equal on card and CPU", flush=True)
+
+    txt = []
+    for case, snrs in ((dict(), (-2.0, -8.0)), (dict(perfect_ce=True),
+                                                (-8.0,))):
+        cfg = PbchsimConfig(n_rb=25, n_id_cell=7, frame_phase=2, batch=B,
+                            **case)
+        cpu, gpu = Pbchsim(cfg, device="cpu"), Pbchsim(cfg, device=dev)
+        for snr in snrs:
+            noise = cpu.draw(torch.Generator().manual_seed(32))
+            n0 = 10.0 ** (-snr / 10.0)
+            a = cpu.trial(noise, n0, cpu.wiener(snr))
+            _equal(f"Pbchsim {case} {snr} dB", (a,),
+                   (gpu.trial(noise, n0, gpu.wiener(snr)),))
+            txt.append(f"{'perfect CE ' if case else ''}{snr} dB "
+                       f"{int(a.sum())}/{B}")
+    print(f"small Pbchsim 25 PRB: MIB decoded {'; '.join(txt)}; equal on "
+          "card and CPU", flush=True)
+
+    worst = 0.0
+    txt = []
+    for cfo, snr in ((0.0, 0.0), (0.0, -12.0), (0.2, 10.0)):
+        cfg = SyncsimConfig(n_rb=25, nid1=57, nid2=1, cfo_scs=cfo, batch=8)
+        cpu, gpu = Syncsim(cfg, device="cpu"), Syncsim(cfg, device=dev)
+        draws = cpu.draw(torch.Generator().manual_seed(33))
+        n0 = 10.0 ** (-snr / 10.0)
+        a, b = cpu.trial(*draws, n0), gpu.trial(*draws, n0)
+        _equal(f"Syncsim CFO {cfo} {snr} dB", a[:2], b[:2])
+        found = a[1] == 0
+        if found.any():
+            worst = max(worst, (a[2] - b[2].cpu())[found].abs().max().item())
+        txt.append(f"CFO {cfo} at {snr} dB: cell found {int(a[0].sum())}/8")
+    print(f"small Syncsim 25 PRB: {'; '.join(txt)}; nid_ok and pos_err equal "
+          f"on card and CPU, CFO estimates max |diff| {worst:.3g} scs (must "
+          "be <= 1e-3)", flush=True)
+    if not worst <= 1e-3:
+        raise AssertionError(f"small Syncsim: CFO estimates differ by {worst}")
+
+    cap, _ = _scan_captures(25, 8, 0.0, 34)
+    hyps = (-1.0, 0.0, 1.0)
+    a = CarrierScan(ScanConfig(n_rb=25, freq_hyps=hyps), device="cpu").scan(
+        cap)
+    b = CarrierScan(ScanConfig(n_rb=25, freq_hyps=hyps), device=dev).scan(cap)
+    keys = ("nid1", "nid2", "pss_pos", "half", "hyp", "coarse_cfo")
+    _equal("CarrierScan", [a[k] for k in keys], [b[k] for k in keys])
+    d = (a["fine_cfo"] - b["fine_cfo"].cpu()).abs().max().item()
+    print(f"small CarrierScan 25 PRB, 3 hypotheses, B=8 at 0 dB: coarse CFO "
+          f"{a['coarse_cfo'].tolist()}, cell "
+          f"{(3 * a['nid1'] + a['nid2']).tolist()}; equal on card and CPU, "
+          f"fine CFO max |diff| {d:.3g} scs (must be <= 1e-3)", flush=True)
+    if not d <= 1e-3:
+        raise AssertionError(f"small CarrierScan: fine CFO differs by {d}")
+
+    txt = []
+    for name, case, snrs in _SMALL_PRACH:
+        cfg = PrachsimConfig(batch=32, **case)
+        cpu, gpu = Prachsim(cfg, device="cpu"), Prachsim(cfg, device=dev)
+        for snr in snrs:
+            draws = cpu.draw(torch.Generator().manual_seed(35))
+            n0 = 10.0 ** (-snr / 10.0)
+            a = cpu.trial(*draws, n0)
+            _equal(f"Prachsim {name} {snr} dB", a, gpu.trial(*draws, n0))
+            txt.append(f"{name} {snr} dB det {int(a[0].sum())}/32 false "
+                       f"{int(a[2].sum())}")
+    print(f"small Prachsim: {'; '.join(txt)}; det, delay_ok and n_false "
+          "equal on card and CPU", flush=True)
+    _no_kernel("small control and sync inputs")
+
+    cfg = MbmssimConfig(mcs=4, n_rb=25, n_sfn_cells=3, max_delay_frac=0.6,
+                        n_turbo_iter=6, batch=8, decoder_window=240)
+    cpu, gpu = Mbmssim(cfg, device="cpu"), Mbmssim(cfg, device=dev)
+    txt = []
+    for snr in (20.0, 0.0):
+        draws = cpu.draw(torch.Generator().manual_seed(36))
+        n0 = 10.0 ** (-snr / 10.0)
+        a = cpu.trial(*draws, n0)
+        _equal(f"Mbmssim {snr} dB", a, gpu.trial(*draws, n0))
+        txt.append(f"{snr} dB TBs ok {int(a[0].sum())}/8 bit errors "
+                   f"{a[1].tolist()}")
+    counts = launch_counts()
+    print(f"small Mbmssim 25 PRB MCS 4, 3 SFN cells, estimated CE: "
+          f"{'; '.join(txt)}; equal on card and CPU; launches {counts}",
+          flush=True)
+    _v2_only(counts, "small Mbmssim")
+    return counts["turbo_half_iter"]
+
+
+# The MBSFN full width: 100 PRB extended CP holds 10,200 PMCH REs; MCS 22
+# (64QAM, TBS 46,888, rate 0.77, 8 code blocks of K = 5,888) is the top MCS
+# that fits (MCS 26 would be rate 1.008). At batch 128 the decoder runs v2
+# at 1,024 rows of N = 6,000 (25 windows of W = 240).
+MBMS_FULL = dict(mcs=22, n_rb=100, n_sfn_cells=3, max_delay_frac=0.8,
+                 n_turbo_iter=8, batch=BATCH)
+MBMS_TURBO_ROWS, MBMS_TURBO_N = BATCH * 8, 6000
+# With the channel known, BLER is in [0.05, 0.5] at MBMS_MID_SNR (found by
+# a scan on the card) and every TB decodes at MBMS_HIGH_SNR. With the MBSFN
+# RS estimate the reference decodes no TB at these delays (the estimate
+# takes each subcarrier from comb sample k // 2, so an odd subcarrier reads
+# its neighbour's phase, up to 2 pi 0.8 CP / n_fft = 1.26 rad off; and the
+# smoother ignores symbol 6's comb offset): a BLER floor the port keeps.
+MBMS_MID_SNR, MBMS_HIGH_SNR = 22.0, 40.0
+MBMS_EST_FLOOR = 0.8
+
+
+def check_turbo_mbsfn(dev, gen, timings) -> dict:
+    """Phase 23: the v2 kernel at the MBSFN full-width shape against its
+    plain version: equal bit for bit."""
+    lin = 3.0 * torch.randn(MBMS_TURBO_ROWS, MBMS_TURBO_N, generator=gen,
+                            device=dev)
+    lp = 3.0 * torch.randn(MBMS_TURBO_ROWS, MBMS_TURBO_N, generator=gen,
+                           device=dev)
+    lin[:, -TURBO_W // 2:] = 1e4
+    lp[:, -TURBO_W // 2:] = 1e4
+    got = half_iteration(lin, lp, TURBO_W, TURBO_U)
+    want = half_iteration_ref(lin, lp, TURBO_W, TURBO_U)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    kernel = functools.partial(half_iteration, lin, lp, TURBO_W, TURBO_U)
+    ms = _time_ms(kernel, 20)
+    plain = _time_ms(lambda: half_iteration_ref(lin, lp, TURBO_W, TURBO_U), 3)
+    n_pos = MBMS_TURBO_ROWS * MBMS_TURBO_N
+    bound = _bound(3 * 4 * n_pos, TURBO_OPS_PER_POS * n_pos)
+    print(f"turbo_half_iter MBSFN [{MBMS_TURBO_ROWS}, {MBMS_TURBO_N}] "
+          f"W={TURBO_W} U={TURBO_U}: max|diff| {err:.3g} (tol {TURBO_ATOL}); "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+    if not err <= TURBO_ATOL:
+        raise AssertionError(f"turbo kernel at the MBSFN shape disagrees: "
+                             f"{err}")
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound}
+    timings.append(("turbo_half_iter MBSFN", kernel, "turbo_half_iter_kernel<",
+                    row))
+    return row
+
+
+def _mbms_run(sim, snr: float, steps: int, what: str) -> tuple:
+    """BLER, step time and v2 launches of `steps` steps at `snr`, with the
+    launch counts set to 0 just before and read just after."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    errs, trials = sim.run_snr(snr, steps * BATCH, seed=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    _v2_only(counts, f"Mbmssim full width {what} at {snr} dB")
+    print(f"Mbmssim 100 PRB MCS 22, 3 SFN cells, delays to 0.8 ECP, {what} "
+          f"at {snr} dB: BLER {errs / trials:.4f} ({errs}/{trials}), "
+          f"{dt / steps * 1e3:.1f} ms a step, {trials / dt:.1f} TB trials/s "
+          f"({steps} steps of {BATCH}, {dt:.3f} s); turbo launches "
+          f"{counts['turbo_half_iter']}", flush=True)
+    return errs / trials, counts["turbo_half_iter"]
+
+
+def _per_step_launches(sim, snr: float) -> int:
+    gen = torch.Generator(device=sim.device).manual_seed(3)
+    reset_launch_counts()
+    sim.step(gen, 10.0 ** (-snr / 10.0))
+    torch.cuda.synchronize()
+    return launch_counts()["turbo_half_iter"]
+
+
+def mbms_full_width(dev) -> tuple:
+    """Phase 24: Mbmssim at full width. Channel known: every TB decodes at
+    MBMS_HIGH_SNR, BLER in [0.05, 0.5] at MBMS_MID_SNR (moved in 1 dB steps
+    while outside, at most 4 tries). MBSFN RS estimate: the reference's
+    floor, BLER at least MBMS_EST_FLOOR at MBMS_HIGH_SNR. Step times, TB
+    trials/s and the v2 kernel's launches in one step of each."""
+    genie = Mbmssim(MbmssimConfig(perfect_ce=True, **MBMS_FULL), device=dev)
+    est = Mbmssim(MbmssimConfig(**MBMS_FULL), device=dev)
+    genie.run_snr(MBMS_HIGH_SNR, BATCH, seed=99)    # settle the allocator
+    torch.cuda.synchronize()
+    bler, launches = _mbms_run(genie, MBMS_HIGH_SNR, 2, "channel known")
+    if bler:
+        raise AssertionError(f"Mbmssim, channel known, at {MBMS_HIGH_SNR} "
+                             f"dB: BLER {bler}")
+    snr, tried = MBMS_MID_SNR, []
+    while True:
+        bler, n = _mbms_run(genie, snr, 8, "channel known")
+        launches += n
+        tried.append(snr)
+        if 0.05 <= bler <= 0.5 or len(tried) == 4:
+            break
+        snr += 1.0 if bler > 0.5 else -1.0
+    if not 0.05 <= bler <= 0.5:
+        raise AssertionError(f"Mbmssim, channel known: BLER {bler} at {snr} "
+                             f"dB (tried {tried}) outside [0.05, 0.5]")
+    floor, n = _mbms_run(est, MBMS_HIGH_SNR, 2, "MBSFN RS estimate")
+    launches += n
+    if floor < MBMS_EST_FLOOR:
+        raise AssertionError(f"Mbmssim, MBSFN RS estimate, at "
+                             f"{MBMS_HIGH_SNR} dB: BLER {floor}, below the "
+                             f"reference's floor {MBMS_EST_FLOOR}")
+    per_step = {"channel known": _per_step_launches(genie, snr),
+                "MBSFN RS estimate": _per_step_launches(est, MBMS_HIGH_SNR)}
+    print(f"Mbmssim (channel known at {snr} dB, tried {tried}; estimate at "
+          f"{MBMS_HIGH_SNR} dB): the v2 kernel launches {per_step} times in "
+          "one step", flush=True)
+    return launches, per_step["channel known"], ((genie, snr),
+                                                 (est, MBMS_HIGH_SNR))
+
+
+# prach_roc.json's configurations: (tag, config); threshold 15
+_PRACH_ROC = [("fmt0_ncs13", dict()), ("fmt0_ncs13_lowsnr", dict()),
+              ("restricted_ncs15", dict(root_u=500, ncs=15, high_speed=True,
+                                        max_delay=10)),
+              ("fmt4_ncs15", dict(root_u=3, ncs=15, fmt=4, max_delay=6))]
+
+
+def _sd3(ref: float, n: int) -> float:
+    """3 sd of the difference of two binomial rates over n trials each, at
+    least one event's worth."""
+    return 3.0 * np.sqrt(max(ref * (1 - ref), 1.0 / n) * 2.0 / n)
+
+
+def control_anchors(dev) -> int:
+    """Phase 25: the reference's anchors on the card, with their
+    configurations, trial counts and bands: tests/test_pbch_pdcch_anchor.py
+    (PBCH at 25 PRB; PDCCH at 100 PRB, CFI 2, L = 4 and 8, batch 128),
+    tests/test_sync_pbch.py's cell-search and CFO points, prach_roc.json's
+    four configurations at threshold 15 (within 3 sd of the JSON over as
+    many occasions), tests/test_mbms.py's two link points."""
+    reset_launch_counts()
+    sim = Pbchsim(PbchsimConfig(batch=256), device=dev)
+    txt = []
+    for snr, ref in ((-6.2, 0.499), (-4.2, 0.088), (-2.2, 0.0092)):
+        b = sim.run_snr(snr, n_batches=2)["bler"]
+        txt.append(f"{snr} dB {b:.4f} (<= {ref} + 0.05)")
+        if not b <= ref + 0.05:
+            raise AssertionError(f"PBCH anchor at {snr} dB: {b}")
+    b7, b5 = (sim.run_snr(s, n_batches=2)["bler"] for s in (-7.0, -5.0))
+    print(f"anchor PBCH 25 PRB, 512 trials: {'; '.join(txt)}; -7.0 dB "
+          f"{b7:.4f} (in [0.28, 0.58]), -5.0 dB {b5:.4f} (<= 0.10)",
+          flush=True)
+    if not (0.28 <= b7 <= 0.58 and b5 <= 0.10):
+        raise AssertionError(f"PBCH waterfall anchor: {b7}, {b5}")
+
+    for L, snr, ref, (w_snr, lo, hi) in ((4, -0.4, 0.49, (-3.0, 0.02, 0.17)),
+                                         (8, -2.0, 0.27, (-6.0, 0.05, 0.28))):
+        sim = Pdcchsim(PdcchsimConfig(n_rb=100, n_pdcch=2, L=L, batch=BATCH),
+                       device=dev)
+        t0 = time.perf_counter()
+        e = sim.run_snr(snr, n_batches=2)["dci_err"]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 2
+        w = sim.run_snr(w_snr, n_batches=4)["dci_err"]
+        print(f"anchor PDCCH 100 PRB CFI 2 L={L} ({len(sim.candidates)} "
+              f"candidates): {snr} dB DCI err {e:.4f} (<= {min(ref, 0.05)}), "
+              f"{w_snr} dB {w:.4f} (in [{lo}, {hi}]); {dt * 1e3:.1f} ms a "
+              f"step of {BATCH}", flush=True)
+        if not (e <= min(ref, 0.05) and lo <= w <= hi):
+            raise AssertionError(f"PDCCH anchor L={L}: {e}, {w}")
+
+    r = Syncsim(SyncsimConfig(n_rb=6, nid1=11, nid2=2, batch=16),
+                device=dev).run_snr(3.0, n_batches=1)
+    c = Syncsim(SyncsimConfig(n_rb=6, batch=16, cfo_scs=0.2),
+                device=dev).run_snr(10.0, n_batches=1)
+    print(f"anchor cell search 6 PRB at 3 dB: det {r['det_rate']:.3f} (>= "
+          f"0.9), timing errors {r['timing_err_rate']:.3f} (<= 0.1); CFO 0.2 "
+          f"at 10 dB: mean |cfo| {c['mean_abs_cfo']:.4f} (0.2 +- 0.07)",
+          flush=True)
+    if not (r["det_rate"] >= 0.9 and r["timing_err_rate"] <= 0.1
+            and abs(c["mean_abs_cfo"] - 0.2) < 0.07):
+        raise AssertionError(f"cell-search anchors: {r}, {c}")
+    _no_kernel("PBCH, PDCCH and cell-search anchors")
+
+    with open("prach_roc.json") as f:
+        roc = json.load(f)
+    for tag, case in _PRACH_ROC:
+        ref = roc[tag]
+        row = next(x for x in ref["rows"] if x["threshold"] == 15.0)
+        n_batches = ref["occasions"] // 256
+        sim = Prachsim(PrachsimConfig(batch=256, **case), device=dev)
+        got = sim.roc(ref["snr_db"], [15.0], n_batches=n_batches)[0]
+        n = n_batches * 256
+        bands = {k: _sd3(row[k], n) for k in ("det_rate", "fa_per_occasion")}
+        print(f"anchor prach_roc {tag} at {ref['snr_db']} dB, threshold 15, "
+              f"{n} occasions: det {got['det_rate']:.5f} (JSON "
+              f"{row['det_rate']:.5f} +- {bands['det_rate']:.5f}), fa/occasion"
+              f" {got['fa_per_occasion']:.5f} (JSON {row['fa_per_occasion']:.5f}"
+              f" +- {bands['fa_per_occasion']:.5f})", flush=True)
+        for k, band in bands.items():
+            if abs(got[k] - row[k]) > band:
+                raise AssertionError(f"prach_roc {tag}: {k} {got[k]} vs "
+                                     f"{row[k]} +- {band}")
+    _no_kernel("prach_roc anchors")
+
+    e1, t1 = Mbmssim(MbmssimConfig(mcs=4, n_rb=6, n_sfn_cells=1,
+                                   max_delay_frac=0.0, batch=16,
+                                   n_turbo_iter=6, perfect_ce=True),
+                     device=dev).run_snr(25.0, 16)
+    e3, t3 = Mbmssim(MbmssimConfig(mcs=4, n_rb=25, n_sfn_cells=3,
+                                   max_delay_frac=0.6, batch=16,
+                                   n_turbo_iter=6), device=dev).run_snr(20.0,
+                                                                        16)
+    print(f"anchor test_mbms: 1 cell perfect CE 25 dB {e1}/{t1} errors (<= "
+          f"1); 3 SFN cells estimated CE 20 dB {e3}/{t3} (<= half)",
+          flush=True)
+    if not (e1 <= 1 and e3 <= t3 * 0.5):
+        raise AssertionError(f"test_mbms anchors: {e1}, {e3}")
+    counts = launch_counts()
+    _v2_only(counts, "test_mbms anchors")
+    return counts["turbo_half_iter"]
+
+
+def _timed_steps(fn, n: int) -> float:
+    """Seconds a call of fn, host clock around n calls and a synchronize,
+    after one call to settle."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def sync_prach_20mhz(dev) -> list:
+    """Phase 26: Syncsim and CarrierScan at 100 PRB (a 155,648-sample
+    capture, FFTs of 262,144; 5 frequency hypotheses) and the time-domain
+    Prachsim at n_fft 2048, n_rb_ul 100 (N = 24,576, k0 = -7,187):
+    detection rates, step times; returns the steps phase 16 profiles."""
+    reset_launch_counts()
+    out = []
+    for cfo, snr in ((0.0, 0.0), (0.2, 10.0)):
+        sim = Syncsim(SyncsimConfig(n_rb=100, nid1=57, nid2=1, cfo_scs=cfo,
+                                    batch=32), device=dev)
+        r = sim.run_snr(snr, n_batches=4, seed=1)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        n0 = 10.0 ** (-snr / 10.0)
+        dt = _timed_steps(lambda: sim.step(gen, n0), 3)
+        print(f"Syncsim 100 PRB CFO {cfo} at {snr} dB, 128 trials: det "
+              f"{r['det_rate']:.4f}, timing errors {r['timing_err_rate']:.4f},"
+              f" mean |cfo| {r['mean_abs_cfo']:.4f} scs; {dt * 1e3:.1f} ms a "
+              f"step of 32 ({32 / dt:.1f} captures/s)", flush=True)
+        # without CFO the cell is found; with it, the CFO estimate holds
+        # (the coherent SSS detection, as the reference's, loses the cell
+        # to the phase the CFO turns between the SSS and PSS symbols)
+        if (r["det_rate"] < 0.9 if not cfo
+                else abs(r["mean_abs_cfo"] - cfo) > 0.07):
+            raise AssertionError(f"Syncsim 100 PRB CFO {cfo}: {r}")
+        out.append((f"Syncsim 100 PRB CFO {cfo}, step of 32",
+                    functools.partial(sim.step, gen, n0)))
+    cap, ssim = _scan_captures(100, 16, 0.0, 37)
+    scan = CarrierScan(ScanConfig(n_rb=100), device=dev)
+    cap = cap.to(dev)
+    res = scan.scan(cap)
+    want = torch.tensor([0.0] * 8 + [1.0] * 8)
+    right = ((res["coarse_cfo"].cpu() == want)
+             & (res["nid1"].cpu() == 57) & (res["nid2"].cpu() == 1))
+    dt = _timed_steps(lambda: scan.scan(cap), 3)
+    print(f"CarrierScan 100 PRB, 5 hypotheses, 16 captures at 0 dB: cell and "
+          f"coarse CFO right {int(right.sum())}/16, fine CFO "
+          f"{res['fine_cfo'].abs().max().item():.4f} scs at most; "
+          f"{dt * 1e3:.1f} ms a scan", flush=True)
+    if int(right.sum()) < 14:
+        raise AssertionError(f"CarrierScan 100 PRB: {res}")
+    out.append(("CarrierScan 100 PRB, 16 captures", functools.partial(
+        scan.scan, cap)))
+    sim = Prachsim(PrachsimConfig(time_domain=True, n_fft=2048, n_rb_ul=100),
+                   device=dev)
+    r = sim.run_snr(-12.0, n_batches=4, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n0 = 10.0 ** 1.2
+    dt = _timed_steps(lambda: sim.step(gen, n0), 3)
+    print(f"Prachsim time domain n_fft 2048 n_rb_ul 100 at -12 dB/bin, 256 "
+          f"trials: det {r['det_rate']:.4f}, delay ok {r['delay_ok_rate']:.4f}"
+          f", false/trial {r['false_per_trial']:.4f}; {dt * 1e3:.1f} ms a step"
+          f" of 64", flush=True)
+    if r["det_rate"] < 0.95 or r["delay_ok_rate"] < 0.9:
+        raise AssertionError(f"Prachsim 20 MHz: {r}")
+    out.append(("Prachsim time domain 20 MHz, step of 64",
+                functools.partial(sim.step, gen, n0)))
+    _no_kernel("sync and PRACH at 20 MHz")
+    return out
 
 
 def _phase(n: int, title: str, fn, *args):
@@ -1355,8 +1844,19 @@ def main() -> None:
                                          uplink_full_width, dev)
     n_ul += n_full + _phase(20, "uplink anchors", uplink_anchors, dev)
     _phase(21, "pucchsim", pucch_points, dev)
-    ul_dev = _phase(16, "device time of each kernel (run last)", device_times,
-                    timings, v1_call, dd_sim, ul_sim)
+    n_mb = _phase(22, "small control and sync inputs, card against CPU",
+                  check_small_control, dev)
+    turbo_mb = _phase(23, "turbo v2 kernel at the MBSFN shape",
+                      check_turbo_mbsfn, dev, gen, timings)
+    n_full_mb, mb_per_step, mb_sim = _phase(24, "Mbmssim full width",
+                                            mbms_full_width, dev)
+    n_mb += n_full_mb + _phase(25, "control and sync anchors",
+                               control_anchors, dev)
+    steps_20mhz = _phase(26, "sync and PRACH at 20 MHz", sync_prach_20mhz,
+                         dev)
+    ul_dev, mb_dev = _phase(16, "device time of each kernel (run last)",
+                            device_times, timings, v1_call, dd_sim, ul_sim,
+                            mb_sim, steps_20mhz)
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
     rows = [
@@ -1388,6 +1888,13 @@ def main() -> None:
              launches=n_ul, launches_per_step=ul_per_step,
              uplink_step_device_ms=ul_dev["step_device_ms"],
              uplink_kernel_share=ul_dev["kernel_share"], **turbo_ul),
+        dict(name="turbo_half_iter", shape="MBSFN 1,024 x 6,000",
+             route="cuda",
+             source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
+             replaces="openair4g_tpu/ops/turbo_pallas.py:219",
+             launches=n_mb, launches_per_step=mb_per_step,
+             mbms_step_device_ms=mb_dev["step_device_ms"],
+             mbms_kernel_share=mb_dev["kernel_share"], **turbo_mb),
     ]
     rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these

@@ -6,6 +6,8 @@ GF(2) products must stay exact sums.
 """
 from __future__ import annotations
 
+import sys
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -46,6 +48,16 @@ def default_device() -> torch.device:
         raise RuntimeError("no CUDA device is present; pass device='cpu' to "
                            "run on the CPU")
     return torch.device("cuda")
+
+
+def cli_device(prog: str, name: str) -> torch.device:
+    """A command line's --device: a CUDA device that is not there ends the
+    program with an error; it never falls back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        sys.exit(f"{prog}: --device {name} but no CUDA device is present "
+                 "(pass --device cpu to run on the CPU)")
+    return dev
 
 
 def count_launch(name: str) -> None:

@@ -25,6 +25,19 @@ def ofdm_modulate(grid, fp: FrameParms):
     return torch.cat(parts, dim=-1)
 
 
+def ofdm_modulate_host(grid: np.ndarray, fp: FrameParms) -> np.ndarray:
+    """numpy form of ofdm_modulate, for waveforms a simulator builds once
+    at construction: grid [..., nsym, n_fft] -> [..., samples_per_tti]
+    (complex128 for a complex128 grid)."""
+    x = np.fft.ifft(grid, axis=-1, norm="ortho")
+    parts = []
+    for sym, cp in enumerate(_cp_lengths(fp)):
+        s = x[..., sym, :]
+        parts.append(s[..., -int(cp):])
+        parts.append(s)
+    return np.concatenate(parts, axis=-1)
+
+
 def ofdm_demodulate(t, fp: FrameParms):
     """time samples [B, samples_per_tti] -> grid [B, nsym, n_fft]."""
     offs = 0

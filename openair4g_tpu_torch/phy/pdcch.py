@@ -1,5 +1,6 @@
 """PDCCH/DCI and PCFICH coding and the DCI blind decode (counterpart of
-openair4g_tpu/phy/pdcch.py): CRC16 masked by the RNTI, tail-biting CC,
+openair4g_tpu/phy/pdcch.py): the CFI codewords and their correlation
+decoder, the format-1A payload, CRC16 masked by the RNTI, tail-biting CC,
 rate matching to 72 L bits; the blind search decodes every candidate
 (aggregation L, CCE offset) as rows of one batched Viterbi call.
 """
@@ -35,23 +36,80 @@ def cfi_encode(cfi: int) -> np.ndarray:
     return _CFI_CODEWORDS[cfi - 1]
 
 
+def cfi_decode(llr32):
+    """llr32 [B, 32] descrambled PCFICH LLRs (positive <=> bit 0) -> (cfi
+    [B] in 1..3, corr [B, 3]): the codeword of the largest correlation,
+    the first on a tie."""
+    corr = llr32.to(torch.float32) @ device_plan(_CFI_CODEWORDS,
+                                                 llr32.device, _cfi_signs)
+    return torch.argmax(corr, dim=-1) + 1, corr
+
+
+def _cfi_signs(codewords: np.ndarray) -> np.ndarray:
+    return (1.0 - 2.0 * codewords.astype(np.float32)).T
+
+
+def _riv_bits(n_rb_dl: int) -> int:
+    return math.ceil(math.log2(n_rb_dl * (n_rb_dl + 1) / 2))
+
+
+def dci_format1a_size(n_rb_dl: int, tdd: bool = False) -> int:
+    """Format 1A payload bits: VRB flag, RIV, MCS 5, HARQ process (3 bits
+    FDD, 4 TDD), NDI, RV 2, TPC 2, and for TDD the 2-bit DAI."""
+    return 1 + _riv_bits(n_rb_dl) + 5 + (4 if tdd else 3) + 1 + 2 + 2 \
+        + (2 if tdd else 0)
+
+
 def pack_dci_format1a(n_rb_dl: int, rb_start: int, n_prb: int, mcs: int,
-                      harq_pid: int, ndi: int, rv: int,
-                      tpc: int = 0) -> np.ndarray:
-    """Pack an FDD format-1A DCI (localized VRB, RIV per 36.213 §7.1.6.3)."""
-    nriv = math.ceil(math.log2(n_rb_dl * (n_rb_dl + 1) / 2))
+                      harq_pid: int, ndi: int, rv: int, tpc: int = 0,
+                      tdd: bool = False, dai: int = 0) -> np.ndarray:
+    """Pack a format-1A DCI (localized VRB, RIV per 36.213 §7.1.6.3);
+    tdd=True takes the TDD fields (4-bit HARQ process, 2-bit DAI)."""
     if not 1 <= n_prb <= n_rb_dl - rb_start:
         raise ValueError(f"allocation {rb_start}+{n_prb} outside {n_rb_dl} RB")
     if (n_prb - 1) <= n_rb_dl // 2:
         riv = n_rb_dl * (n_prb - 1) + rb_start
     else:
         riv = n_rb_dl * (n_rb_dl - n_prb + 1) + (n_rb_dl - 1 - rb_start)
-    fields = [(1, 1), (riv, nriv), (mcs, 5), (harq_pid, 3), (ndi, 1),
-              (rv, 2), (tpc, 2)]
+    fields = [(1, 1), (riv, _riv_bits(n_rb_dl)), (mcs, 5),
+              (harq_pid, 4 if tdd else 3), (ndi, 1), (rv, 2), (tpc, 2)]
+    if tdd:
+        fields.append((dai, 2))
     bits = []
     for val, width in fields:
         bits += [(val >> (width - 1 - i)) & 1 for i in range(width)]
     return np.asarray(bits, np.int8)
+
+
+def unpack_dci_format1a(bits: np.ndarray, n_rb_dl: int,
+                        tdd: bool = False) -> dict:
+    """The fields of a format-1A payload, the allocation as rb_start and
+    n_prb."""
+    pos = 0
+
+    def take(w):
+        nonlocal pos
+        v = 0
+        for b in bits[pos:pos + w]:
+            v = (v << 1) | int(b)
+        pos += w
+        return v
+
+    loc = take(1)
+    riv = take(_riv_bits(n_rb_dl))
+    mcs, harq = take(5), take(4 if tdd else 3)
+    ndi, rv, tpc = take(1), take(2), take(2)
+    out = dict(vrb_localized=loc, mcs=mcs, harq_pid=harq, ndi=ndi, rv=rv,
+               tpc=tpc)
+    if tdd:
+        out["dai"] = take(2)
+    lcrb = riv // n_rb_dl + 1
+    rb_start = riv % n_rb_dl
+    if rb_start + lcrb > n_rb_dl:
+        lcrb = n_rb_dl - lcrb + 2
+        rb_start = n_rb_dl - 1 - rb_start
+    out.update(rb_start=rb_start, n_prb=lcrb)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,6 +135,15 @@ def pdcch_scramble_seq(nid_cell: int, ns: int, length: int) -> np.ndarray:
 class DciCandidate:
     L: int
     cce_offset: int
+
+
+def search_space_candidates(n_cce: int) -> list:
+    """Every aggregation level and CCE offset, L = 1, 2, 4, 8 (a superset
+    of any hashed search space), for simulators that model no UE
+    identity; ue_search_candidates and common_search_candidates are the
+    36.213 spaces."""
+    return [DciCandidate(L=L, cce_offset=off) for L in (1, 2, 4, 8)
+            for off in range(0, n_cce - L + 1, L)]
 
 
 def yk_hash(rnti: int, subframe: int) -> int:

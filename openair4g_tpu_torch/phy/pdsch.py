@@ -28,6 +28,7 @@ class DlschConfig:
     decoder_window: int | None = None   # None: 96 on CPU, 240 on CUDA
     decoder_warmup: int = 24
     nports: int = 1          # TX antenna ports (2: 8 data REs/RB on pilot syms)
+    g_override: int | None = None   # another RE budget (the MBSFN region)
 
     @property
     def tbs(self) -> int:
@@ -39,7 +40,10 @@ class DlschConfig:
 
     @property
     def G(self) -> int:
-        """Coded bits of a full-band allocation on `nports` antenna ports."""
+        """Coded bits of a full-band allocation on `nports` antenna ports,
+        or g_override where it is set."""
+        if self.g_override is not None:
+            return self.g_override
         return get_G_dl(self.n_rb, self.Qm, self.n_pdcch_symbols,
                         siso=self.nports == 1)
 

@@ -138,7 +138,11 @@ def _grid_tensors(gm: GridMap, device) -> dict:
             "data_sc": torch.as_tensor(gm.data_sc, dtype=torch.long,
                                        device=device),
             "data_bin": torch.as_tensor(gm.data_bin, dtype=torch.long,
-                                        device=device)}
+                                        device=device),
+            "pilot_sym": torch.as_tensor(gm.pilot_sym, dtype=torch.long,
+                                         device=device),
+            "pilot_bin": torch.as_tensor(gm.pilot_bin, dtype=torch.long,
+                                         device=device)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,3 +186,10 @@ def extract_data_res(grid, gm: GridMap):
     """grid [B, nsym, n_fft] -> [B, n_data_re] (inverse of the fill order)."""
     plan = _grid_tensors(gm, grid.device)
     return grid[:, plan["data_sym"], plan["data_bin"]]
+
+
+def extract_pilot_res(grid, gm: GridMap):
+    """grid [B, nsym, n_fft] -> [B, n_pilot_re], every port's pilot REs in
+    the map's pilot order."""
+    plan = _grid_tensors(gm, grid.device)
+    return grid[:, plan["pilot_sym"], plan["pilot_bin"]]

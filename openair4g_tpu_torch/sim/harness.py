@@ -19,11 +19,11 @@ import argparse
 import dataclasses
 import json
 import os
-import sys
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
+
+from ..device import cli_device
 
 
 def write_bler_csv(path: str, rows, mcs: int, tbs: int, rate: float,
@@ -113,14 +113,6 @@ def resumable_sweep(sim, snrs, n_frames: int, ckpt_path: str | None = None,
     return rows
 
 
-def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        sys.exit(f"dlsim: --device {name} but no CUDA device is present "
-                 "(pass --device cpu to run on the CPU)")
-    return dev
-
-
 def dlsim_main(argv=None):
     """dlsim-compatible CLI: -x 1 runs DlsimAwgn on AWGN and DlsimFading
     otherwise, -x 2 DlsimTxDiv, -x 3..6 DlsimSm. Returns the sweep's
@@ -149,7 +141,7 @@ def dlsim_main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; never falls back)")
     a = p.parse_args(argv)
-    dev = _device(a.device)
+    dev = cli_device("dlsim", a.device)
 
     snrs = np.arange(a.snr0, a.snr1 + 1e-9, a.snr_step)
     if a.tm == 2:

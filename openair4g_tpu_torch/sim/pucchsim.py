@@ -15,12 +15,12 @@ generator's draws; `step` draws them on the simulator's device.
 from __future__ import annotations
 
 import argparse
-import sys
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..device import cli_device
 from ..ops.llr import demap_llr
 from ..phy.pucch import (pucch1_detect, pucch1_slot_symbols, pucch2_equalize,
                          pucch2_slot_symbols, pucch2x_ack_symbol,
@@ -167,9 +167,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; never falls back)")
     a = p.parse_args(argv)
-    if torch.device(a.device).type == "cuda" and not torch.cuda.is_available():
-        sys.exit(f"pucchsim: --device {a.device} but no CUDA device is "
-                 "present (pass --device cpu to run on the CPU)")
+    cli_device("pucchsim", a.device)
     sim = Pucchsim(PucchsimConfig(fmt=a.fmt), device=a.device)
     rows = []
     for snr in np.arange(a.snr0, a.snr1 + 1e-9, a.step):

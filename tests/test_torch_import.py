@@ -14,7 +14,13 @@ from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
                                            DlsimFading, DlsimFadingConfig)
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
+from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
+from openair4g_tpu_torch.sim.pbchsim import Pbchsim, PbchsimConfig
+from openair4g_tpu_torch.sim.pdcchsim import Pdcchsim, PdcchsimConfig
+from openair4g_tpu_torch.sim.prachsim import Prachsim, PrachsimConfig
 from openair4g_tpu_torch.sim.pucchsim import Pucchsim, PucchsimConfig
+from openair4g_tpu_torch.sim.scansim import CarrierScan, ScanConfig
+from openair4g_tpu_torch.sim.syncsim import Syncsim, SyncsimConfig
 from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -76,6 +82,52 @@ def test_uplink_slice_modules_are_among_the_checked_ones():
             "openair4g_tpu_torch.tables._ul_dmrs_phi"} <= names
 
 
+def test_control_and_sync_slice_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert {"openair4g_tpu_torch.tables.prach_root_map",
+            "openair4g_tpu_torch.phy.sync",
+            "openair4g_tpu_torch.phy.pbch",
+            "openair4g_tpu_torch.phy.phich",
+            "openair4g_tpu_torch.phy.pmch",
+            "openair4g_tpu_torch.phy.prach",
+            "openair4g_tpu_torch.phy.measurements",
+            "openair4g_tpu_torch.phy.tracking",
+            "openair4g_tpu_torch.phy.tdd",
+            "openair4g_tpu_torch.sim.rf",
+            "openair4g_tpu_torch.sim.pdcchsim",
+            "openair4g_tpu_torch.sim.pbchsim",
+            "openair4g_tpu_torch.sim.syncsim",
+            "openair4g_tpu_torch.sim.scansim",
+            "openair4g_tpu_torch.sim.prachsim",
+            "openair4g_tpu_torch.sim.mbmssim"} <= names
+
+
+def test_control_and_sync_command_lines_run_with_jax_blocked():
+    """pbchsim, pdcchsim, syncsim and prachsim, each at one tiny point on
+    the CPU, in one interpreter with jax and the JAX package blocked."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['openair4g_tpu'] = None\n"
+            "for name, argv in [\n"
+            "        ('pbchsim', ['-B', '6', '-s', '-2', '-S', '-2']),\n"
+            "        ('pdcchsim', ['-B', '6', '-s', '0', '-S', '0']),\n"
+            "        ('syncsim', ['-B', '6', '-s', '3', '-S', '3']),\n"
+            "        ('prachsim', ['-s', '-10', '-S', '-10',\n"
+            "                      '--time-domain'])]:\n"
+            "    sys.argv = [name] + argv + ['-n', '1', '--device', 'cpu']\n"
+            "    runpy.run_module('openair4g_tpu_torch.sim.' + name,\n"
+            "                     run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.splitlines()
+    assert len(lines) == 4, lines
+    for line, word in zip(lines, ("PBCH BLER", "DCI err", "timing_err",
+                                  "delay_ok")):
+        assert word in line, line
+
+
 def test_pucchsim_command_line_starts_with_jax_blocked():
     code = ("import runpy, sys\n"
             "sys.modules['jax'] = None\n"
@@ -109,9 +161,16 @@ def test_dlsim_command_line_starts_with_jax_blocked():
     (DlsimTxDiv, DlsimTxDivConfig(n_rb=6, batch=2)),
     (DlsimAwgn, DlsimConfig(n_rb=6, batch=2)),
     (Ulsim, UlsimConfig(n_rb=6, n_rb_alloc=6, batch=2)),
-    (Pucchsim, PucchsimConfig(batch=2))],
+    (Pucchsim, PucchsimConfig(batch=2)),
+    (Pdcchsim, PdcchsimConfig(n_rb=6, batch=2)),
+    (Pbchsim, PbchsimConfig(n_rb=6, batch=2)),
+    (Syncsim, SyncsimConfig(n_rb=6, batch=2)),
+    (CarrierScan, ScanConfig(n_rb=6)),
+    (Prachsim, PrachsimConfig(batch=2)),
+    (Mbmssim, MbmssimConfig(n_rb=6, batch=2))],
     ids=["DlsimFading", "DlsimSm", "DlsimTxDiv", "DlsimAwgn", "Ulsim",
-         "Pucchsim"])
+         "Pucchsim", "Pdcchsim", "Pbchsim", "Syncsim", "CarrierScan",
+         "Prachsim", "Mbmssim"])
 def test_simulators_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
                                                              sim_cls, cfg):
     """device=None means the card: without one the simulator raises rather
