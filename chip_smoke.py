@@ -100,29 +100,61 @@ Phases, in order; any failure raises and the script exits non-zero:
      link points;
  26. Syncsim and CarrierScan at 100 PRB and the time-domain Prachsim at
      n_fft 2048, n_rb_ul 100: detection rates and step times;
+ 27. this slice's paths at small size (25 PRB, batch 4, 30 dB unless
+     noted), card against CPU on the same injected draws: FullChainSim
+     on AWGN and EVA over 4 rounds (every round's TB, DCI and PHICH flags
+     and the counts), UeRx.receive with TM 2 (both size hypotheses),
+     EnbRx.receive_pusch with an SRS and receive_pucch, UlGrantSim over 2
+     rounds, a TddFrameSim frame at 6 PRB, cold start: all equal;
+ 28. mrc_llr at A = 1 at the PCFICH [128, 16], FullChainSim's PDCCH
+     [128, 3,168], its MCS 4 PDSCH [32, 12,600] (Qm 2) and its MCS 26
+     PDSCH [128, 12,600] (Qm 6), n0 a number, within rtol = atol = 3e-4
+     of its plain version, timed over a ring of input copies twice the
+     L2's size; v2 at FullChainSim's MCS 4 shape (64 x 3,840) bit-exact;
+ 29. FullChainSim at the flagship load (100 PRB, MCS 26, EVA, 4 HARQ
+     rounds, 8 iterations, batch 128): every TB and DCI at FULL_HIGH_SNR;
+     near FULL_MID_SNR round-0 BLER in [0.02, 0.98], fewer errors in
+     round 1, at most 1 % DCI misses, mrc_llr twice a round; TB trials/s;
+ 30. FullChainSim's defaults at 6 dB (every TB in round 0, no DCI miss,
+     no PHICH error), cold start at 100 PRB, fullsim_main writing the
+     reference's CSV, generate_frame at 100 PRB against its CPU run;
+ 31. UlGrantSim (96 PRB granted at MCS 20, 4 rounds, batch 128) with the
+     DL at 20 and -30 dB, and TddFrameSim configuration 1 at 100 PRB;
+ 32. the reference's anchors of this slice with its configurations,
+     trial counts and assertions (tests/test_fullsim.py,
+     tests/test_sched_ul.py, tests/test_tddsim.py);
+ 33. every other (kernel, shape) that phases 29-31 launched (each wrapper
+     counts its launches by shape too), against its plain version on
+     random inputs of that shape: the flagship load's v2 at 1,408 x 5,760
+     and mrc_llr at Qm 6, UlGrantSim's and TddFrameSim's codecs, the TDD
+     frame's PCFICH, PDCCH and PDSCH; only v2 and mrc_llr may launch;
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17 and 23 timed, by torch.profiler's device-side events
+     6, 7, 11, 17, 23, 28 and 33 timed, by torch.profiler's device-side events
      (the kernel alone, without the host's enqueue time that CUDA events
      around back-to-back calls of a few-µs kernel measure), each beside the
      launch floor, the device time of an empty <<<1, 32>>> kernel of the
      same library (kernels of different names share a profiler session);
      then the device kernels, copies and fills of one v1 call, which must
-     be its one kernel; then the device time a step of phase 13's, 19's
-     and 24's paths, with the v2 kernel's share of the uplink and MBSFN
-     steps', and of a call of each phase 26 path. It runs last: the
-     profiler is started after every path has run, so no path is timed in
-     a process that has held a profiling session.
+     be its one kernel; then the device time a step of phase 13's, 19's,
+     24's and 29's paths, with the v2 kernel's share of the uplink, MBSFN
+     and full-chain steps', and of a call of each phase 26 path. It runs
+     last: the profiler is started after every path has run, so no path
+     is timed in a process that has held a profiling session.
 Each path is driven with the launch counts set to 0 just before it and
 read just after; every kernel must have launched on its path (v1, which
 no path runs, in its own timed run). Each phase prints its seconds. Ends
 with a JSON line of the kernels (launches on the paths, launches per
 flagship step, error, times, and the bound: the least time the card could
 take for the same work, from its bytes or operations; the v2 kernel has a
-row at the uplink shape, with the uplink paths' launches, and one at the
-MBSFN shape, with the MBSFN paths'), then the device JSON line. It needs
-a CUDA device and imports nothing of JAX.
+row at the uplink shape, with the uplink paths' launches, one at the
+MBSFN shape, with the MBSFN paths'; each (kernel, shape) of phases 28 and
+33 has a row with the launches of that shape alone in phases 29-32, by
+phase, those a step of the first run where it ran, and its share of its
+bound), then the device JSON line. It needs a CUDA device and imports
+nothing of JAX.
 """
 import functools
+import itertools
 import json
 import os
 import re
@@ -134,7 +166,8 @@ import numpy as np
 import torch
 
 from openair4g_tpu_torch import kernels
-from openair4g_tpu_torch.device import launch_counts, reset_launch_counts
+from openair4g_tpu_torch.device import (launch_counts, launch_shapes,
+                                        reset_launch_counts)
 from openair4g_tpu_torch.ops.equalize_llr import (demap_llr_fused,
                                                   demap_llr_fused_ref,
                                                   mrc_llr, mrc_llr_ref)
@@ -143,12 +176,22 @@ from openair4g_tpu_torch.ops.turbo_cuda import (half_iteration,
                                                 half_iteration_prepped_ref,
                                                 half_iteration_ref,
                                                 prep_parity, scratch_numel)
+from openair4g_tpu_torch.ops.gold import scramble_bits
+from openair4g_tpu_torch.ops.llr import map_symbols
 from openair4g_tpu_torch.phy.control_region import make_control_region_map
+from openair4g_tpu_torch.phy.dci_formats import n_rbg, pack_dci_format1
+from openair4g_tpu_torch.phy.ofdm import ofdm_demodulate
+from openair4g_tpu_torch.phy.pdcch import ue_search_candidates
 from openair4g_tpu_torch.phy.resource_grid import make_grid_map
+from openair4g_tpu_torch.phy.srs import SrsConfig
+from openair4g_tpu_torch.sched import (CellConfig, EnbRx, EnbTx, UeRx, UeTx,
+                                       UeUlConfig)
 from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
                                            DlsimFading, DlsimFadingConfig,
                                            dlsim_snr_offset_db)
-from openair4g_tpu_torch.sim.harness import dlsim_main
+from openair4g_tpu_torch.sim.framegen import generate_frame
+from openair4g_tpu_torch.sim.fullsim import FullChainSim, FullsimConfig
+from openair4g_tpu_torch.sim.harness import dlsim_main, fullsim_main
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 from openair4g_tpu_torch.sim.phase_split import profile_steps
@@ -161,6 +204,8 @@ from openair4g_tpu_torch.sim.pucchsim import Pucchsim, PucchsimConfig
 from openair4g_tpu_torch.sim.pucchsim import main as pucchsim_main
 from openair4g_tpu_torch.sim.scansim import CarrierScan, ScanConfig
 from openair4g_tpu_torch.sim.syncsim import Syncsim, SyncsimConfig
+from openair4g_tpu_torch.sim.tddsim import TddFrameSim, TddsimConfig
+from openair4g_tpu_torch.sim.ulgrantsim import UlGrantConfig, UlGrantSim
 from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 
 # Flagship shapes: 128 subframes x 11 code blocks of K = 5632 decode as
@@ -296,17 +341,18 @@ def _step_device_time(fn) -> tuple:
 
 
 def device_times(timings: list, one_launch: tuple, dd: tuple,
-                 ul: tuple, mbms: tuple, steps: list) -> tuple:
+                 ul: tuple, mbms: tuple, steps: list, full: tuple) -> tuple:
     """Phase 16: the launch floor (an empty <<<1, 32>>> kernel of the
     library) and each (label, fn, kernel name, row) that the kernel checks
     queued, timed by _device_ms (the row, if any, takes it as device_ms);
     the device events of one call of one_launch = (label, fn, kernel name),
     which must be that kernel once and nothing else; the device time a step
-    of dd = (sim, SNR), of the full-width uplink ul = (sim, SNR) and of the
+    of dd = (sim, SNR), of the full-width uplink ul = (sim, SNR), of the
     full-width Mbmssim mbms = ((sim, SNR) with the channel known, (sim,
-    SNR) with the MBSFN RS estimate), with the v2 kernel's share of the
-    uplink's and the Mbmssim's; then the device time a call of each (label, fn) of steps.
-    Returns the uplink's and the first Mbmssim's figures."""
+    SNR) with the MBSFN RS estimate) and of FullChainSim at the flagship
+    load full = (sim, SNR), with the v2 kernel's share of each but dd's;
+    then the device time a call of each (label, fn) of steps. Returns the
+    uplink's, the first Mbmssim's and the FullChainSim's figures."""
     lib = kernels.load()
     stream = torch.cuda.current_stream().cuda_stream
     items = [(lambda: kernels.check(lib.empty_launch(stream), "empty"),
@@ -342,15 +388,24 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
           f"over {PROFILED_STEPS} profiled steps ({wall:.1f} ms a profiled "
           "step on the host)", flush=True)
 
+    def state(sim, snr):
+        """The step's estimator state after (generator, n0)."""
+        if sim is ul[0]:
+            return (sim.wiener(snr),)
+        if sim is full[0]:
+            return (sim.ue.make_wiener(10.0 ** (-snr / 10.0)),)
+        return ()
+
     figures = []
     for (sim, snr), label in [(ul, "uplink 100 PRB MCS 20 EVA 4 rounds")] + [
             (m, f"Mbmssim 100 PRB MCS 22, {what},")
-            for m, what in zip(mbms, ("channel known", "MBSFN RS estimate"))]:
+            for m, what in zip(mbms, ("channel known", "MBSFN RS estimate"))
+    ] + [(full, "fullsim 100 PRB MCS 26 EVA 4 rounds")]:
         gen = torch.Generator(device=sim.device).manual_seed(5)
         n0 = 10.0 ** (-snr / 10.0)
-        state = (sim.wiener(snr),) if sim is ul[0] else ()
+        args = state(sim, snr)
         dev_ms, v2_ms, v2_n, wall = _step_device_time(
-            lambda: sim.step(gen, n0, *state))
+            lambda: sim.step(gen, n0, *args))
         share = v2_ms / dev_ms if dev_ms else 0.0
         print(f"{label} at {snr} dB: {dev_ms:.2f} ms device time a step over "
               f"{PROFILED_STEPS} profiled steps, the v2 kernel {v2_ms:.2f} ms "
@@ -364,7 +419,7 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
         print(f"{label}: {dev_ms:.2f} ms device time a call over "
               f"{PROFILED_STEPS} profiled calls; {wall:.1f} ms a profiled call"
               " on the host", flush=True)
-    return figures[0], figures[1]
+    return figures[0], figures[1], figures[3]
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -1778,6 +1833,543 @@ def sync_prach_20mhz(dev) -> list:
     return out
 
 
+# ------------------------------------- per-TTI procedures and their sims --
+
+def _small_fullsim(dev, case: dict, snr: float, seed: int):
+    """FullChainSim at 25 PRB, batch 4, on the CPU and the card on the same
+    draws; every round's flags and the trial's counts must be equal."""
+    cfg = FullsimConfig(n_rb=25, batch=4, n_turbo_iter=4, decoder_window=240,
+                        **case)
+    cpu, gpu = FullChainSim(cfg, device="cpu"), FullChainSim(cfg, device=dev)
+    draws = cpu.draw(torch.Generator().manual_seed(seed))
+    n0 = 10.0 ** (-snr / 10.0)
+    a = cpu.trial(*draws, n0, cpu.ue.make_wiener(n0))
+    b = gpu.trial(*draws, n0, gpu.ue.make_wiener(n0))
+    for r, (ra, rb) in enumerate(zip(a.rounds, b.rounds)):
+        _equal(f"FullChainSim {case} round {r}", ra[:4], rb[:4])
+    _equal(f"FullChainSim {case}", a[1:], b[1:])
+    return a
+
+
+def _small_ue_rx(dev) -> dict:
+    """UeRx.receive, TM 2 (the 1A and the format-1 size hypotheses, both
+    DCIs sent), 25 PRB CFI 2 MCS 4, batch 4, 30 dB: every decision equal on
+    the card and the CPU."""
+    cell = CellConfig(n_rb=25, n_pdcch=2, mcs=4)
+    enb = EnbTx(cell, device="cpu")
+    c1 = next(c for c in ue_search_candidates(enb.crm.n_cce, cell.rnti,
+                                              cell.subframe)
+              if c.cce_offset >= cell.dci_L)
+    f1 = pack_dci_format1(25, (1 << n_rbg(25)[0]) - 1, 9, 2, 1, 0)
+    enb.set_dcis([(enb.dci_payload, cell.rnti, cell.dci_L, 0),
+                  (f1, cell.rnti, c1.L, c1.cce_offset)])
+    ues = {d: UeRx(cell, n_turbo_iter=4, tm=2, device=d, decoder_window=240)
+           for d in ("cpu", dev)}
+    codec, ue = ues["cpu"].codec, ues["cpu"]
+    gen = torch.Generator().manual_seed(21)
+    tb = torch.randint(0, 2, (4, codec.cfg.tbs), generator=gen,
+                       dtype=torch.int32)
+    e = scramble_bits(codec.encode(tb), ue.scr_seq)
+    t = enb.data_waveform(map_symbols(e, codec.cfg.Qm),
+                          ack_bits=torch.tensor([0, 1, 1, 0]))
+    n0 = 10.0 ** -3.0
+    noise = torch.randn(4, t.shape[1], 2, generator=gen)
+    rgrid = ofdm_demodulate(t + n0 ** 0.5 / 2 ** 0.5 * torch.complex(
+        noise[..., 0], noise[..., 1]), enb.fp)
+    out = {d: u.receive(rgrid.to(d), n0, u.make_wiener(n0))
+           for d, u in ues.items()}
+    a, b = out["cpu"], out[dev]
+    keys = ("cfi_hat", "dci_found", "dci_payload", "tb", "tb_ok",
+            "phich_ack")
+    _equal("UeRx TM2", [a[k] for k in keys], [b[k] for k in keys])
+    for fmt in ("1a", "1"):
+        _equal(f"UeRx TM2 format {fmt}", a["dci"][fmt], b["dci"][fmt])
+    if not (bool(a["tb_ok"].all()) and bool(a["dci"]["1"][0].all())
+            and bool((a["cfi_hat"] == 2).all())):
+        raise AssertionError(f"UeRx TM2 at 30 dB: {a}")
+    return a
+
+
+def _small_uplink_sched(dev) -> None:
+    """UeTx + EnbRx: the PUSCH with an SRS (25 PRB MCS 6, 20 PRB, 12 dB) and
+    PUCCH format 1a (6 dB), batch 4, card against CPU on one waveform."""
+    kw = dict(n_rb=25, mcs=6, n_rb_alloc=20, n_turbo_iter=4,
+              decoder_window=240, srs=SrsConfig(n_rb=25, srs_bw_rb=20))
+    txs = {d: UeTx(UeUlConfig(**kw), d) for d in ("cpu", dev)}
+    gen = torch.Generator().manual_seed(22)
+    tb = torch.randint(0, 2, (4, txs["cpu"].ulsch.tbs), generator=gen,
+                       dtype=torch.int32)
+    wave = txs["cpu"].pusch_subframe(tb)
+    n0 = 10.0 ** -1.2
+    noise = torch.randn(4, wave.shape[1], 2, generator=gen)
+    rx = wave + (n0 / 2) ** 0.5 * torch.complex(noise[..., 0], noise[..., 1])
+    out = {d: EnbRx(t).receive_pusch(rx.to(d), n0) for d, t in txs.items()}
+    _equal("EnbRx PUSCH", out["cpu"][:2], out[dev][:2])
+    snr_c, snr_g = out["cpu"][2][1], out[dev][2][1].cpu()
+    if not (bool(out["cpu"][1].all()) and torch.equal(out["cpu"][0], tb)
+            and float((snr_c - snr_g).abs().max()) < 1e-3):
+        raise AssertionError(f"EnbRx PUSCH + SRS: {out['cpu']} {out[dev]}")
+    d = torch.tensor([1.0, -1.0, 1.0, -1.0], dtype=torch.complex64)
+    wave = txs["cpu"].pucch_subframe(d)
+    rx = wave + 0.5 ** 0.5 * 10.0 ** -0.3 * torch.complex(
+        *torch.randn(2, *wave.shape, generator=gen))
+    signs = [torch.sign(EnbRx(txs[dv]).receive_pucch(
+        rx.to(dv), 10.0 ** -0.6).real.cpu()) for dv in ("cpu", dev)]
+    if not (torch.equal(signs[0], signs[1]) and torch.equal(signs[0],
+                                                            d.real)):
+        raise AssertionError(f"EnbRx PUCCH 1a: {signs}")
+    print(f"small EnbRx: PUSCH + SRS TB flags and bits equal on card and CPU"
+          f" (all decode), SRS SNR {snr_c.tolist()} dB; PUCCH 1a signs "
+          f"{signs[0].tolist()} on both", flush=True)
+
+
+def check_small_per_tti(dev) -> None:
+    """Phase 27: this slice's paths at small size, card (kernels) against
+    CPU (plain versions) on the same injected draws, 30 dB unless noted:
+    FullChainSim on AWGN and EVA over 4 rounds, UeRx.receive with TM 2,
+    EnbRx with SRS and PUCCH, UlGrantSim over 2 rounds, a TddFrameSim frame
+    at 6 PRB and cold_start."""
+    for case, snr in ((dict(mcs=4, channel="AWGN"), 30.0),
+                      (dict(mcs=10, channel="EVA"), 30.0),
+                      (dict(mcs=10, channel="EVA"), 6.0)):
+        res = _small_fullsim(dev, case, snr, seed=20)
+        print(f"small FullChainSim 25 PRB {case} 4 rounds at {snr} dB: errs "
+              f"{res.errs.tolist()} reach {res.reach.tolist()} DCI misses "
+              f"{int(res.dci_miss)} PHICH errors {int(res.phich_err)}; every "
+              "round's TB, DCI and PHICH flags equal on card and CPU",
+              flush=True)
+        if snr > 20 and (int(res.errs.sum()) or int(res.dci_miss)
+                         or int(res.phich_err)):
+            raise AssertionError(f"FullChainSim at {snr} dB: {res}")
+    a = _small_ue_rx(dev)
+    print(f"small UeRx TM2 25 PRB at 30 dB: CFI {a['cfi_hat'].tolist()}, "
+          "both DCIs, TB bits and flags, PHICH decisions equal on card and "
+          "CPU", flush=True)
+    _small_uplink_sched(dev)
+
+    cfg = UlGrantConfig(n_rb=25, mcs_ul=10, rb_offset=0, n_prb=20,
+                        n_harq_rounds=2, batch=4, n_turbo_iter=4,
+                        decoder_window=240)
+    sims = {d: UlGrantSim(cfg, device=d) for d in ("cpu", dev)}
+    for snr_dl, snr_ul in ((30.0, 30.0), (30.0, 0.0), (-30.0, 30.0)):
+        draws = sims["cpu"].draw(torch.Generator().manual_seed(23))
+        res = {d: s.trial(*draws, 10.0 ** (-snr_dl / 10),
+                          10.0 ** (-snr_ul / 10), s.wiener(snr_dl, snr_ul))
+               for d, s in sims.items()}
+        _equal(f"UlGrantSim DL {snr_dl} UL {snr_ul}", res["cpu"],
+               res[dev])
+        print(f"small UlGrantSim 25 PRB 2 rounds DL {snr_dl} UL {snr_ul} dB: "
+              f"DCI errors {int(res['cpu'].dci_errs)}, errs "
+              f"{res['cpu'].errs.tolist()} equal on card and CPU", flush=True)
+
+    sims = {d: TddFrameSim(TddsimConfig(batch=4, n_turbo_iter=4,
+                                        decoder_window=240), device=d)
+            for d in ("cpu", dev)}
+    noise = sims["cpu"].draw(torch.Generator().manual_seed(24))
+    out = {d: s.run_frame(30.0, seed=3, noise=noise)
+           for d, s in sims.items()}
+    keys = ("dl_ok", "ul_ok", "log", "n_dl_assignments")
+    if [out["cpu"][k] for k in keys] != [out[dev][k] for k in keys] or not (
+            np.array_equal(out["cpu"]["dai_miss"], out[dev]["dai_miss"])
+            and np.array_equal(out["cpu"]["ack_bundle"],
+                               out[dev]["ack_bundle"])):
+        raise AssertionError(f"small TddFrameSim: {out}")
+    print(f"small TddFrameSim 6 PRB config 1 at 30 dB: DL {out[dev]['dl_ok']}"
+          f"/{out[dev]['dl_tot']}, UL {out[dev]['ul_ok']}/"
+          f"{out[dev]['ul_tot']}, DAI and bundled ACKs equal on card and CPU"
+          f"; SRS {out['cpu']['srs']:.4f} / {out[dev]['srs']:.4f} dB",
+          flush=True)
+
+    cfg = FullsimConfig(n_rb=25, batch=8)
+    for snr in (10.0, -9.0):
+        got = {d: FullChainSim(cfg, device=d).cold_start(snr, batch=8,
+                                                         seed=1)
+               for d in ("cpu", dev)}
+        if got["cpu"] != got[dev]:
+            raise AssertionError(f"cold start at {snr} dB: {got}")
+        print(f"small cold start 25 PRB at {snr} dB: {got[dev]} on card and "
+              "CPU", flush=True)
+
+
+# FullChainSim's shapes: 100 PRB at CFI 3 holds 12,600 PDSCH REs and 88
+# CCEs (3,168 PDCCH REs); MCS 4 is 2 blocks of K = 3,648 a TB (N = 3,840,
+# 16 windows), at the defaults' batch of 32.
+FULL_PDSCH_RE, FULL_PDCCH_RE = 12600, 88 * 36
+FULL_MCS4_ROWS, FULL_MCS4_N = 32 * 2, 3840
+# mrc_llr's per-TTI shapes are timed over a ring of input copies that
+# holds at least twice the H100's 50 MB L2 (at most RING_MAX copies), so
+# that a call reads its operands from HBM as the path's fresh gathers do.
+RING_BYTES, RING_MAX = 2 * 50e6, 64
+
+
+def _hold_mrc(label: str, lead: tuple, A: int, Qm: int, n0_scalar: bool,
+              dev, gen, timings) -> dict:
+    """mrc_llr at y, H [*lead, A] (n0 a number, or per RE) against its
+    plain version within MRC_RTOL/ATOL; its time by CUDA events over a
+    ring of input copies (RING_BYTES), queued for phase 16's device time.
+    Returns the kernels-line row."""
+    n_re = int(np.prod(lead))
+    n_bytes = 16 * n_re * A + 4 * n_re * Qm + (0 if n0_scalar else 4 * n_re)
+    copies = int(min(RING_MAX, max(1, np.ceil(RING_BYTES / n_bytes))))
+
+    def inputs():
+        y, H = (torch.view_as_complex(torch.randn(*lead, A, 2, generator=gen,
+                                                  device=dev))
+                for _ in range(2))
+        n0 = 0.05 if n0_scalar else \
+            0.01 + torch.rand(*lead, generator=gen, device=dev)
+        return y, H, n0, Qm
+
+    ring = [inputs() for _ in range(copies)]
+    got, want = mrc_llr(*ring[0]), mrc_llr_ref(*ring[0])
+    torch.cuda.synchronize()
+    err, ratio = _worst_ratio(got, want, MRC_RTOL, MRC_ATOL)
+    turn = itertools.cycle(ring)
+
+    def kernel():
+        return mrc_llr(*next(turn))
+
+    ms = _time_ms(kernel, 50)
+    plain = _time_ms(lambda: mrc_llr_ref(*ring[0]), 5)
+    bound = _mrc_bound(n_re, A, Qm, 1 if n0_scalar else n_re)
+    kind = "n0 scalar" if n0_scalar else "n0 per RE"
+    print(f"mrc_llr {label} A={A} Qm={Qm} {list(lead)} {kind}: max|diff| "
+          f"{err:.3g}, max |diff|/(atol+rtol|ref|) {ratio:.3g} (must be "
+          f"<= 1); kernel {ms:.4f} ms over a ring of {copies} input copies "
+          f"({copies * n_bytes / 1e6:.1f} MB), plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})", flush=True)
+    if not ratio <= 1.0:
+        raise AssertionError(f"mrc_llr {label} disagrees: {ratio}")
+    row = {"shape": f"{label} {list(lead)} A={A} Qm={Qm} {kind}",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "ring_copies": copies, **bound}
+    timings.append((f"mrc_llr {label} A={A} Qm={Qm} REs={n_re}", kernel,
+                    f"mrc_llr_kernel<{A},{Qm}>", row))
+    return row
+
+
+def _hold_v2(label: str, B: int, N: int, W: int, U: int, dev, gen,
+             timings, pad_from: int | None = None) -> dict:
+    """The v2 kernel at lin, lp [B, N] (3 N(0, 1); 1e4 from pad_from on,
+    the forced pad after the trellis' end, where the block length is
+    known) against its plain version, bit for bit; its time by CUDA
+    events, queued for phase 16's device time. Returns the row."""
+    lin = 3.0 * torch.randn(B, N, generator=gen, device=dev)
+    lp = 3.0 * torch.randn(B, N, generator=gen, device=dev)
+    if pad_from is not None:
+        lin[:, pad_from:] = 1e4
+        lp[:, pad_from:] = 1e4
+    got = half_iteration(lin, lp, W, U)
+    want = half_iteration_ref(lin, lp, W, U)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    kernel = functools.partial(half_iteration, lin, lp, W, U)
+    ms = _time_ms(kernel, 20)
+    plain = _time_ms(lambda: half_iteration_ref(lin, lp, W, U), 3)
+    bound = _bound(3 * 4 * B * N, TURBO_OPS_PER_POS * B * N)
+    print(f"turbo_half_iter {label} [{B}, {N}] W={W} U={U}: max|diff| "
+          f"{err:.3g} (tol {TURBO_ATOL}); kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bound['bound_ms']:.5f} ms "
+          f"({bound['bound_by']})", flush=True)
+    if not err <= TURBO_ATOL:
+        raise AssertionError(f"turbo kernel at {label} [{B}, {N}]: {err}")
+    row = {"shape": f"{label} {B:,} x {N:,}", "max_abs_err": err, "ms": ms,
+           "plain_ms": plain, **bound}
+    timings.append((f"turbo_half_iter {label} {B} x {N}", kernel,
+                    "turbo_half_iter_kernel<", row))
+    return row
+
+
+def check_kernels_per_tti(dev, gen, timings) -> list:
+    """Phase 28: mrc_llr at A = 1 with n0 a number, as UeRx passes it, at
+    the PCFICH [128, 16], FullChainSim's PDCCH [128, 3,168] and MCS 4
+    PDSCH [32, 12,600] (Qm 2) and its MCS 26 PDSCH [128, 12,600] (Qm 6)
+    within rtol = atol = 3e-4 of its plain version; v2 at FullChainSim's
+    MCS 4 shape, 64 x 3,840, bit-exact. Returns [(kernel, the launch key
+    of count_launch, row)]."""
+    held = []
+    for label, lead, Qm in (("PCFICH", (BATCH, 16), 2),
+                            ("fullsim PDCCH", (BATCH, FULL_PDCCH_RE), 2),
+                            ("fullsim MCS 4 PDSCH", (32, FULL_PDSCH_RE), 2),
+                            ("fullsim MCS 26 PDSCH", (BATCH, FULL_PDSCH_RE),
+                             6)):
+        row = _hold_mrc(label, lead, 1, Qm, True, dev, gen, timings)
+        held.append(("mrc_llr", (lead + (1,), Qm, True), row))
+    row = _hold_v2("fullsim MCS 4", FULL_MCS4_ROWS, FULL_MCS4_N, TURBO_W,
+                   TURBO_U, dev, gen, timings, pad_from=3651)
+    held.append(("turbo_half_iter",
+                 (FULL_MCS4_ROWS, FULL_MCS4_N, TURBO_W, TURBO_U), row))
+    return held
+
+
+def _sum_shapes(*shape_counts) -> dict:
+    out = {}
+    for counts in shape_counts:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _per_step(shapes: dict, steps: int, what: str) -> dict:
+    """{(kernel, launch key): (launches a step, what a step is)}."""
+    return {k: (v / steps, what) for k, v in shapes.items()}
+
+
+def check_kernels_launched(dev, gen, timings, launched: dict, held: list,
+                           where: dict) -> list:
+    """Phase 33: every (kernel, shape) that the full-width paths of phases
+    29-31 launched and phase 28 did not hold, against its plain version on
+    random inputs of that shape: mrc_llr within rtol = atol = 3e-4, v2 bit
+    for bit; each labelled with where[(kernel, shape)], the run it was
+    counted a step of. Only those two kernels may launch there. Returns
+    [(kernel, launch key, row)] as check_kernels_per_tti does."""
+    done = {(name, key) for name, key, _ in held}
+    out = []
+    for name, key in sorted(launched, key=str):
+        if (name, key) in done:
+            continue
+        label = where.get((name, key), "phases 29-31")
+        if name == "mrc_llr":
+            shape, Qm, n0_scalar = key
+            row = _hold_mrc(label, shape[:-1], shape[-1], Qm, n0_scalar, dev,
+                            gen, timings)
+        elif name == "turbo_half_iter":
+            row = _hold_v2(label, *key, dev, gen, timings)
+        else:
+            raise AssertionError(f"{name} {key} launched on the per-TTI "
+                                 "paths: only v2 and mrc_llr may be")
+        out.append((name, key, row))
+    return out
+
+
+# The flagship load through the full chain: what `fullsim_main -B 100 -m
+# 26 -g EVA -b 128` runs (4 HARQ rounds, 8 iterations, CFI 3).
+FULL_LOAD = dict(n_rb=100, mcs=26, channel="EVA", n_harq_rounds=4,
+                 n_turbo_iter=8, batch=BATCH)
+FULL_HIGH_SNR, FULL_MID_SNR = 34.0, 22.0
+
+
+def fullsim_full_width(dev) -> tuple:
+    """Phase 29: FullChainSim at the flagship load. At FULL_HIGH_SNR every
+    DCI is found and every TB decodes within the 4 rounds; near
+    FULL_MID_SNR (moved in 2 dB steps while round-0 BLER is outside [0.02,
+    0.98]) round 1 fails fewer than round 0 and at most 1 % of the DCIs are
+    missed; mrc_llr launches twice a round, v2 launches; TB trials/s on the
+    host clock. Returns the launches by (kernel, shape) over both SNRs,
+    those a step at the mid SNR, and (sim, mid SNR)."""
+    sim = FullChainSim(FullsimConfig(**FULL_LOAD), device=dev)
+    R = sim.cfg.n_harq_rounds
+    sim.run_snr(FULL_HIGH_SNR, BATCH, seed=99)      # settle the allocator
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    errs, reach = sim.run_snr(FULL_HIGH_SNR, 2 * BATCH, seed=1)
+    shapes_hi = launch_shapes()
+    print(f"fullsim 100 PRB MCS 26 EVA 4 rounds at {FULL_HIGH_SNR} dB: errs "
+          f"{errs.tolist()} reached {reach.tolist()}, DCI misses "
+          f"{sim.dci_miss}, PHICH errors {sim.phich_err}", flush=True)
+    if errs[-1] or sim.dci_miss:
+        raise AssertionError(f"fullsim at {FULL_HIGH_SNR} dB: {errs}, "
+                             f"{sim.dci_miss} DCI misses")
+    snr, tried, steps = FULL_MID_SNR, [], 8
+    while True:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        errs, reach = sim.run_snr(snr, steps * BATCH, seed=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts, shapes = launch_counts(), launch_shapes()
+        bler = errs / np.maximum(reach, 1)
+        tried.append(snr)
+        if 0.02 <= bler[0] <= 0.98 or len(tried) == 5:
+            break
+        snr += 2.0 if bler[0] > 0.98 else -2.0
+    print(f"fullsim 100 PRB MCS 26 EVA 4 rounds at {snr} dB (tried {tried}): "
+          f"per-round BLER {[round(float(x), 4) for x in bler]} (errs "
+          f"{errs.tolist()}, reached {reach.tolist()}), DCI misses "
+          f"{sim.dci_miss}, PHICH errors {sim.phich_err}; "
+          f"{dt / steps * 1e3:.1f} ms a step, {steps * BATCH / dt:.1f} TB "
+          f"trials/s ({steps} steps of {BATCH} x {R} rounds, {dt:.3f} s)",
+          flush=True)
+    print(f"launches over the fullsim runs at {snr} dB: {counts}", flush=True)
+    if not 0.02 <= bler[0] <= 0.98:
+        raise AssertionError(f"fullsim round-0 BLER {bler[0]} outside "
+                             "[0.02, 0.98]")
+    if not errs[1] < errs[0]:
+        raise AssertionError(f"fullsim: no HARQ gain {errs}")
+    if sim.dci_miss > 0.01 * reach[0]:
+        raise AssertionError(f"fullsim: {sim.dci_miss} DCI misses")
+    if counts["mrc_llr"] != 2 * R * steps or counts["turbo_half_iter"] == 0 \
+            or counts["demap_llr"] or counts["turbo_half_iter_v1"]:
+        raise AssertionError(f"fullsim launches {counts}: mrc_llr must "
+                             f"launch 2 x {R} rounds x {steps} steps")
+    return (_sum_shapes(shapes_hi, shapes),
+            _per_step(shapes, steps, f"fullsim flagship load at {snr} dB"),
+            (sim, snr))
+
+
+def fullsim_defaults_and_entry_points(dev) -> dict:
+    """Phase 30: FullsimConfig() (100 PRB, MCS 4, AWGN, 4 rounds, batch 32)
+    at 6 dB: every TB in round 0, no DCI miss, no PHICH error
+    (tests/test_fullsim.py:66-73 at full width); cold start at 100 PRB;
+    fullsim_main writing the reference's CSV schema (its rate column is
+    TBS over the CFI-1 G, 7,224 / 30,000, as the reference's);
+    generate_frame at 100 PRB equal to its CPU run. Returns the launches
+    by (kernel, shape) and those a step of the defaults' run."""
+    reset_launch_counts()
+    sim = FullChainSim(FullsimConfig(), device=dev)
+    errs, reach = sim.run_snr(6.0, 4 * sim.cfg.batch, seed=2)
+    per_step = _per_step(launch_shapes(), 4, "fullsim defaults at 6 dB")
+    print(f"fullsim defaults (100 PRB MCS 4 AWGN 4 rounds batch 32) at 6 dB: "
+          f"errs {errs.tolist()} reached {reach.tolist()}, DCI misses "
+          f"{sim.dci_miss}, PHICH errors {sim.phich_err}", flush=True)
+    if errs[0] or sim.dci_miss or sim.phich_err:
+        raise AssertionError(f"fullsim defaults at 6 dB: {errs}")
+    r = sim.cold_start(10.0, batch=16)
+    print(f"cold start 100 PRB at 10 dB, 16 captures: {r}", flush=True)
+    if r["sync_rate"] < 0.9 or r["mib_rate"] < 0.9 or r["mib"]["n_rb"] != 100:
+        raise AssertionError(f"cold start at 100 PRB: {r}")
+    os.makedirs("build", exist_ok=True)
+    path = "build/fullsim_100prb_mcs4.csv"
+    rows = fullsim_main(["-B", "100", "-m", "4", "-s", "-2", "-S", "0",
+                         "-i", "2", "-n", "64", "-b", "32", "-o", path])
+    with open(path) as f:
+        lines = f.read().splitlines()
+    cols = [line.split(";") for line in lines]
+    if len(lines) != len(rows) or any(len(c) != 4 + 2 * 4 + 1 for c in cols) \
+            or cols[0][:4] != ["-2", "4", "7224", "0.240800"]:
+        raise AssertionError(f"fullsim_main CSV: {lines}")
+    print(f"fullsim_main on the card wrote {path}: {lines}", flush=True)
+    cell = CellConfig(n_rb=100, n_id_cell=7)
+    frames = [generate_frame(cell, sfn=1, fill_pdsch=True, seed=4, device=d)
+              for d in (dev, "cpu")]
+    diff = np.abs(frames[0] - frames[1]).max() / np.abs(frames[1]).max()
+    print(f"generate_frame 100 PRB: {frames[0].shape[0]} samples, card "
+          f"against CPU max |diff| {diff:.3g} of scale (must be <= 1e-5)",
+          flush=True)
+    if not diff <= 1e-5:
+        raise AssertionError(f"generate_frame card vs CPU: {diff}")
+    return launch_shapes(), per_step
+
+
+# The closed loops at full width: the format-0 grant for 96 PRB at MCS 20
+# (16QAM), and TDD configuration 1 at 100 PRB.
+GRANT_FULL = dict(n_rb=100, rb_offset=2, n_prb=96, mcs_ul=20,
+                  n_harq_rounds=4, batch=BATCH)
+
+
+def closed_loops_full_width(dev) -> tuple:
+    """Phase 31: UlGrantSim at GRANT_FULL with the DL at 20 dB and the UL at
+    30 dB (no DCI error, every TB decodes) and with the DL at -30 dB (every
+    trial a DCI error, no TB), each point twice in turn, with its step time
+    on the host clock; TddFrameSim configuration 1, 100 PRB, CFI 2, batch
+    32, 12 dB (every DL and UL TB decodes, DSUUDDSUUD, no DAI miss).
+    Returns the launches by (kernel, shape), and those a step of
+    UlGrantSim at DL 20 / UL 30 dB and a frame of TddFrameSim."""
+    sim = UlGrantSim(UlGrantConfig(**GRANT_FULL), device=dev)
+    sim.run_snr(20.0, 30.0, BATCH, seed=99)          # settle the allocator
+    reset_launch_counts()
+    per_step = {}
+    for snr_dl, snr_ul in ((20.0, 30.0), (-30.0, 30.0)) * 2:
+        t0 = time.perf_counter()
+        d, errs, reach = sim.run_snr(snr_dl, snr_ul, 2 * BATCH, seed=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not per_step:
+            per_step = _per_step(launch_shapes(), 2,
+                                 "UlGrantSim DL 20 / UL 30 dB")
+        print(f"UlGrantSim 100 PRB, 96 PRB granted at MCS 20, 4 rounds, DL "
+              f"{snr_dl} UL {snr_ul} dB: DCI errors {d}/{reach[0]}, errs "
+              f"{errs.tolist()} reached {reach.tolist()}; {dt / 2 * 1e3:.1f} "
+              f"ms a step of {BATCH}", flush=True)
+        if snr_dl > 0 and (d or errs[-1]):
+            raise AssertionError(f"UlGrantSim at {snr_dl}/{snr_ul}: {d} "
+                                 f"{errs}")
+        if snr_dl < 0 and (d != reach[0] or errs[-1] != reach[0]):
+            raise AssertionError(f"UlGrantSim DL {snr_dl}: {d} {errs}")
+    shapes = launch_shapes()
+    counts = launch_counts()
+    tdd = TddFrameSim(TddsimConfig(tdd_config=1, n_rb=100, n_pdcch=2,
+                                   batch=32), device=dev)
+    tdd.run_frame(12.0, seed=9)                     # build the chains
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tdd.run_frame(12.0, seed=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    pattern = "".join(d for _, d, _ in out["log"])
+    print(f"TddFrameSim config 1 100 PRB CFI 2 batch 32 at 12 dB: "
+          f"{pattern}, DL {out['dl_ok']}/{out['dl_tot']}, UL {out['ul_ok']}/"
+          f"{out['ul_tot']}, DAI misses {int(out['dai_miss'].sum())}, SRS "
+          f"{out['srs']:.2f} dB; {dt * 1e3:.1f} ms a frame", flush=True)
+    if pattern != "DSUUDDSUUD" or out["dl_ok"] != out["dl_tot"] \
+            or out["ul_ok"] != out["ul_tot"] or out["dai_miss"].any():
+        raise AssertionError(f"TddFrameSim at 100 PRB: {out}")
+    tdd_shapes = launch_shapes()
+    counts = {k: v + launch_counts()[k] for k, v in counts.items()}
+    if counts["turbo_half_iter"] == 0 or counts["mrc_llr"] == 0:
+        raise AssertionError(f"closed loops: launches {counts}")
+    frame = _per_step(tdd_shapes, 1, "TddFrameSim frame at 12 dB")
+    return _sum_shapes(shapes, tdd_shapes), {**frame, **per_step}
+
+
+def per_tti_anchors(dev) -> dict:
+    """Phase 32: the reference's anchors of this slice on the card, with its
+    configurations, trial counts and assertions (tests/test_fullsim.py:
+    76-83, tests/test_sched_ul.py:123-134, tests/test_tddsim.py:31-39,
+    50-66 and 69-92)."""
+    reset_launch_counts()
+    sim = FullChainSim(FullsimConfig(n_rb=25, mcs=10, channel="EVA",
+                                     n_harq_rounds=3, batch=32,
+                                     n_turbo_iter=6), device=dev)
+    errs, reach = sim.run_snr(6.0, 32)
+    print(f"test_fullsim EVA HARQ gain: errs {errs.tolist()} reached "
+          f"{reach.tolist()} (reach[0] = 32, errs[-1] <= errs[0])",
+          flush=True)
+    if not (reach[0] == 32 and errs[-1] <= errs[0]):
+        raise AssertionError(f"fullsim HARQ gain anchor: {errs} {reach}")
+    g = UlGrantSim(UlGrantConfig(n_rb=25, mcs_ul=10, rb_offset=0, n_prb=20,
+                                 n_harq_rounds=3, batch=16, n_turbo_iter=5),
+                   device=dev)
+    d, errs, reach = g.run_snr(20.0, -2.5, 16)
+    print(f"test_sched_ul HARQ at UL -2.5 dB: DCI errors {d}, errs "
+          f"{errs.tolist()} (0; > 0; fewer in the last round)", flush=True)
+    if not (d == 0 and errs[0] > 0 and errs[-1] < errs[0]):
+        raise AssertionError(f"UL grant HARQ anchor: {d} {errs}")
+    out = TddFrameSim(TddsimConfig(tdd_config=2, batch=2),
+                      device=dev).run_frame(12.0)
+    dirs = "".join(d for _, d, _ in out["log"])
+    print(f"test_tddsim config 2: {dirs}, DL {out['dl_tot']}, UL "
+          f"{out['ul_tot']}", flush=True)
+    if dirs != "DSUDDDSUDD" or out["dl_tot"] != 12 or out["ul_tot"] != 4:
+        raise AssertionError(f"TDD config 2 anchor: {out}")
+    for cfg, n_dl, n_ul in ((dict(tdd_config=1, n_rb=25, n_pdcch=2,
+                                  batch=2), 8, 8),
+                            (dict(tdd_config=2, n_rb=50, n_pdcch=2,
+                                  batch=1), 6, 2)):
+        out = TddFrameSim(TddsimConfig(**cfg), device=dev).run_frame(12.0)
+        print(f"test_tddsim {cfg}: DL {out['dl_ok']}/{out['dl_tot']}, UL "
+              f"{out['ul_ok']}/{out['ul_tot']}", flush=True)
+        if not (out["dl_ok"] == out["dl_tot"] == n_dl
+                and out["ul_ok"] == out["ul_tot"] == n_ul):
+            raise AssertionError(f"TDD frame anchor {cfg}: {out}")
+    snr = 0.2
+    tdd = TddFrameSim(TddsimConfig(tdd_config=1, n_rb=25, n_pdcch=1,
+                                   mcs_dl=4, batch=16), device=dev)
+    outs = [tdd.run_frame(snr, seed=seed) for seed in range(4)]
+    tdd_bler = 1 - sum(o["dl_ok"] for o in outs) / sum(o["dl_tot"]
+                                                       for o in outs)
+    fdd = DlsimFading(DlsimFadingConfig(mcs=4, n_rb=25, channel="AWGN",
+                                        n_harq_rounds=1, batch=64),
+                      device=dev)
+    e, r = fdd.run_snr(snr, 256)
+    print(f"test_tddsim TDD on the FDD waterfall at {snr} dB: TDD BLER "
+          f"{tdd_bler:.4f}, FDD {e[0] / r[0]:.4f} (within 0.15)", flush=True)
+    if not abs(tdd_bler - e[0] / r[0]) < 0.15:
+        raise AssertionError(f"TDD vs FDD anchor: {tdd_bler} {e} {r}")
+    return launch_shapes()
+
+
 def _phase(n: int, title: str, fn, *args):
     """Run one phase, with its number, title and seconds printed."""
     print(f"== phase {n}: {title}", flush=True)
@@ -1854,9 +2446,28 @@ def main() -> None:
                                control_anchors, dev)
     steps_20mhz = _phase(26, "sync and PRACH at 20 MHz", sync_prach_20mhz,
                          dev)
-    ul_dev, mb_dev = _phase(16, "device time of each kernel (run last)",
-                            device_times, timings, v1_call, dd_sim, ul_sim,
-                            mb_sim, steps_20mhz)
+    _phase(27, "small per-TTI inputs, card against CPU", check_small_per_tti,
+           dev)
+    held = _phase(28, "mrc_llr and v2 at the per-TTI shapes",
+                  check_kernels_per_tti, dev, gen, timings)
+    tti, per_step_29, full_sim = _phase(
+        29, "FullChainSim full width, the flagship load", fullsim_full_width,
+        dev)
+    tti = {29: tti}             # launches by phase, then by (kernel, shape)
+    tti[30], per_step_30 = _phase(
+        30, "FullChainSim defaults, cold start, fullsim_main, framegen",
+        fullsim_defaults_and_entry_points, dev)
+    tti[31], per_step_31 = _phase(31, "UlGrantSim and TddFrameSim full width",
+                                  closed_loops_full_width, dev)
+    tti[32] = _phase(32, "per-TTI reference anchors", per_tti_anchors, dev)
+    tti_per_step = {**per_step_31, **per_step_30, **per_step_29}
+    held += _phase(33, "every other shape the full-width paths launched",
+                   check_kernels_launched, dev, gen, timings,
+                   _sum_shapes(tti[29], tti[30], tti[31]), held,
+                   {k: what for k, (_, what) in tti_per_step.items()})
+    ul_dev, mb_dev, full_dev = _phase(
+        16, "device time of each kernel (run last)", device_times, timings,
+        v1_call, dd_sim, ul_sim, mb_sim, steps_20mhz, full_sim)
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
     rows = [
@@ -1896,6 +2507,31 @@ def main() -> None:
              mbms_step_device_ms=mb_dev["step_device_ms"],
              mbms_kernel_share=mb_dev["kernel_share"], **turbo_mb),
     ]
+    # This slice's rows: one a (kernel, shape) held in phase 28 or 33, with
+    # the launches of that shape alone, by phase, and a step of the first
+    # run where it ran; the flagship load's v2 row with its step's device
+    # time and v2's share of it.
+    sources = {"turbo_half_iter": ("turbo_half_iter.cu",
+                                   "turbo_pallas.py:219"),
+               "mrc_llr": ("mrc_llr.cu", "equalize_llr.py:40")}
+    for name, key, row in held:
+        by_phase = {n: c[name, key] for n, c in tti.items()
+                    if (name, key) in c}
+        extra = {}
+        if (name, key) in tti_per_step:
+            extra["launches_per_step"], extra["step_of"] = \
+                tti_per_step[name, key]
+        if name == "turbo_half_iter" and (name, key) in per_step_29:
+            extra.update(fullsim_step_device_ms=full_dev["step_device_ms"],
+                         fullsim_kernel_device_ms_per_step=full_dev[
+                             "kernel_device_ms_per_step"],
+                         fullsim_kernel_share=full_dev["kernel_share"])
+        src, tpu = sources[name]
+        rows.append(dict(
+            name=name, route="cuda", source=f"openair4g_tpu_torch/csrc/{src}",
+            replaces=f"openair4g_tpu/ops/{tpu}",
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
+            **extra, **row, share=row["bound_ms"] / row["device_ms"]))
     rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None

@@ -14,9 +14,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # One count per hand-written kernel: each wrapper adds one where it
-# launches its kernel, and nowhere else.
+# launches its kernel, and nowhere else; the same launches by (kernel,
+# shape), the shape as the wrapper describes it.
 _LAUNCHES = {"turbo_half_iter": 0, "turbo_half_iter_v1": 0, "mrc_llr": 0,
              "demap_llr": 0}
+_SHAPES: dict = {}
 
 
 # Static plans (index maps, tables) uploaded once per (host array, build,
@@ -50,6 +52,12 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def resolve_device(device) -> torch.device:
+    """An entry point's `device` argument: None means default_device() (the
+    card, raising without one); any other value is the device it names."""
+    return default_device() if device is None else torch.device(device)
+
+
 def cli_device(prog: str, name: str) -> torch.device:
     """A command line's --device: a CUDA device that is not there ends the
     program with an error; it never falls back to the CPU."""
@@ -60,14 +68,21 @@ def cli_device(prog: str, name: str) -> torch.device:
     return dev
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: tuple) -> None:
     _LAUNCHES[name] += 1
+    _SHAPES[name, shape] = _SHAPES.get((name, shape), 0) + 1
 
 
 def reset_launch_counts() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+    _SHAPES.clear()
 
 
 def launch_counts() -> dict:
     return dict(_LAUNCHES)
+
+
+def launch_shapes() -> dict:
+    """{(kernel, shape): launches} since the last reset_launch_counts()."""
+    return dict(_SHAPES)

@@ -133,7 +133,7 @@ def mrc_llr(y, H, n0_total, Qm: int):
         *walks[1], H.stride(-1), *(walks[2] if n0 is not None else (0, 0)),
         A, Qm, kernels.stream_of(y))
     kernels.check(err, "mrc_llr")
-    count_launch("mrc_llr")
+    count_launch("mrc_llr", (tuple(y.shape), Qm, n0 is None))
     return out
 
 
@@ -174,5 +174,5 @@ def demap_llr_fused(x_hat, n0_eff, Qm: int):
         *(walks[1] if n0 is not None else (0, 0)), Qm,
         kernels.stream_of(x_hat))
     kernels.check(err, "demap_llr")
-    count_launch("demap_llr")
+    count_launch("demap_llr", (lead, Qm, n0 is None))
     return out

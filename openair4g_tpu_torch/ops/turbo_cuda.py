@@ -266,7 +266,7 @@ def half_iteration(lin, lp, W: int, U: int):
                                      W, U, pick_unroll(W, U),
                                      kernels.stream_of(lin))
     kernels.check(err, "turbo_half_iter")
-    count_launch("turbo_half_iter")
+    count_launch("turbo_half_iter", (B, N, W, U))
     return out
 
 
@@ -411,5 +411,5 @@ def half_iteration_prepped(lin, gpf, gpb, W: int, U: int):
         scr.data_ptr(), B, n_w, W, U, pick_unroll(W, U),
         kernels.stream_of(lin))
     kernels.check(err, "turbo_half_iter_v1")
-    count_launch("turbo_half_iter_v1")
+    count_launch("turbo_half_iter_v1", (B, N, W, U))
     return out

@@ -64,12 +64,17 @@ class GridMap:
 @functools.lru_cache(maxsize=None)
 def make_grid_map(n_rb: int, n_pdcch: int, n_id_cell: int = 0,
                   subframe: int = 7, nports: int = 1,
-                  normal_cp: bool = True) -> GridMap:
+                  normal_cp: bool = True,
+                  rb_alloc: tuple | None = None) -> GridMap:
     """Data fill order: symbols in time order, then subcarriers in frequency
     order. With nports == 1 only port-0 pilots are punctured; with
-    nports == 2 both ports' pilot positions are skipped."""
+    nports == 2 both ports' pilot positions are skipped. rb_alloc =
+    (rb_start, n_prb) restricts the data REs to a contiguous allocation
+    (DCI format 1A type 2); the pilots stay full-band."""
     fp = FrameParms(n_rb=n_rb, normal_cp=normal_cp, n_id_cell=n_id_cell)
     psyms = set(pilot_symbol_indices(fp))
+    k_lo, k_hi = (0, fp.n_sc) if rb_alloc is None else \
+        (12 * rb_alloc[0], 12 * (rb_alloc[0] + rb_alloc[1]))
     data_sym, data_sc = [], []
     for sym in range(n_pdcch, fp.symbols_per_subframe):
         skip = set()
@@ -77,7 +82,7 @@ def make_grid_map(n_rb: int, n_pdcch: int, n_id_cell: int = 0,
             skip = set(pilot_sc_positions(fp, sym, 0).tolist())
             if nports == 2:
                 skip |= set(pilot_sc_positions(fp, sym, 1).tolist())
-        for k in range(fp.n_sc):
+        for k in range(k_lo, k_hi):
             if k not in skip:
                 data_sym.append(sym)
                 data_sc.append(k)

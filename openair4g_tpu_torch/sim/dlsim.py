@@ -29,7 +29,7 @@ import torch
 
 from ..config import FrameParms
 from ..convert import from_packed, wiener_stack_from_reference
-from ..device import default_device
+from ..device import resolve_device
 from ..ops.equalize_llr import mrc_llr
 from ..ops.gold import gold_sequence, pdsch_cinit
 from ..ops.llr import demap_llr, map_symbols
@@ -75,10 +75,6 @@ def _noise(noise_normals, n0: float, dev):
     return sigma * torch.complex(nn[..., 0], nn[..., 1])
 
 
-def _sim_device(device) -> torch.device:
-    return default_device() if device is None else torch.device(device)
-
-
 @dataclass(frozen=True)
 class DlsimConfig:
     """The reference's DlsimConfig fields and defaults, plus decoder_window
@@ -100,7 +96,7 @@ class DlsimAwgn:
 
     def __init__(self, cfg: DlsimConfig, device=None):
         self.cfg = cfg
-        self.device = _sim_device(device)
+        self.device = resolve_device(device)
         self.dlsch = DlschCodec(DlschConfig(
             mcs=cfg.mcs, n_rb=cfg.n_rb, n_pdcch_symbols=cfg.n_pdcch_symbols,
             n_turbo_iter=cfg.n_turbo_iter,
@@ -242,7 +238,7 @@ class DlsimFading:
     def __init__(self, cfg: DlsimFadingConfig, device=None):
         _check_config(cfg)
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         self.dlsch = DlschCodec(DlschConfig(
             mcs=cfg.mcs, n_rb=cfg.n_rb, n_pdcch_symbols=cfg.n_pdcch_symbols,
             n_turbo_iter=cfg.n_turbo_iter,

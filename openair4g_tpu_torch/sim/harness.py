@@ -6,6 +6,12 @@ command line.
         -o build/eva.csv                # on a card
     python3 -m openair4g_tpu_torch.sim.harness --device cpu -B 6 -n 16 ...
 
+`fullsim_main` is the full chain's command line (sim/fullsim.py), with
+the same flags as the reference's and the same CSV:
+
+    python3 -c "from openair4g_tpu_torch.sim.harness import fullsim_main; \\
+        fullsim_main(['-B', '100', '-m', '26', '-g', 'EVA', '-b', '128'])"
+
 The CSV row is `SNR;MCS;TBS;rate;err0;trials0;...;dci_err`, one err/trials
 pair per HARQ round (or codeword). A sweep's state (per-SNR accumulators
 and steps done) is a JSON sidecar, so a long sweep resumes where it
@@ -168,6 +174,47 @@ def dlsim_main(argv=None):
         tbs = get_TBS_DL(a.mcs, a.n_rb)
         G = get_G_dl(a.n_rb, get_Qm(a.mcs), 1)
         write_bler_csv(a.csv, rows, a.mcs, tbs, tbs / G)
+        print(f"wrote {a.csv}")
+    return rows
+
+
+def fullsim_main(argv=None):
+    """Full-chain (eNB TX -> UE RX incl. control channels) sweep CLI with
+    the same CSV schema; the dci_err column carries real blind-decode
+    misses (dlsim.c errs[0] accounting). Returns the sweep's rows."""
+    from ..tables.tbs import get_G_dl, get_Qm, get_TBS_DL
+    from .fullsim import FullChainSim, FullsimConfig
+
+    p = argparse.ArgumentParser(
+        prog="fullsim", description="full eNB-TX -> UE-RX chain BLER")
+    p.add_argument("-m", "--mcs", type=int, default=4)
+    p.add_argument("-B", "--n-rb", type=int, default=25)
+    p.add_argument("-g", "--channel", default="AWGN")
+    p.add_argument("-s", "--snr0", type=float, default=-4.0)
+    p.add_argument("-S", "--snr1", type=float, default=4.0)
+    p.add_argument("-i", "--snr-step", type=float, default=0.5)
+    p.add_argument("-n", "--n-frames", type=int, default=256)
+    p.add_argument("-b", "--batch", type=int, default=32)
+    p.add_argument("-r", "--harq-rounds", type=int, default=4)
+    p.add_argument("-o", "--csv", default=None)
+    p.add_argument("--ckpt", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; never falls back)")
+    a = p.parse_args(argv)
+    dev = cli_device("fullsim", a.device)
+
+    sim = FullChainSim(FullsimConfig(
+        n_rb=a.n_rb, mcs=a.mcs, channel=a.channel.upper(), batch=a.batch,
+        n_harq_rounds=a.harq_rounds), dev)
+    snrs = np.arange(a.snr0, a.snr1 + 1e-9, a.snr_step)
+    rows = resumable_sweep(sim, snrs, a.n_frames, ckpt_path=a.ckpt,
+                           seed=a.seed)
+    if a.csv:
+        tbs = get_TBS_DL(a.mcs, a.n_rb)
+        G = get_G_dl(a.n_rb, get_Qm(a.mcs), 1)
+        write_bler_csv(a.csv, rows, a.mcs, tbs, tbs / G,
+                       dci_err=sim.dci_miss)
         print(f"wrote {a.csv}")
     return rows
 

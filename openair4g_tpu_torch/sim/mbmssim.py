@@ -20,13 +20,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.gold import gold_sequence, scramble_bits, unscramble_llrs
 from ..ops.llr import demap_llr, map_symbols
 from ..phy import ofdm
 from ..phy.pdsch import DlschCodec, DlschConfig
 from ..phy.pmch import (make_mbsfn_map, mbsfn_estimate_channel,
                         mbsfn_fill_grid, pmch_cinit)
-from .dlsim import _idx, _noise, _sim_device
+from .dlsim import _idx, _noise
 
 
 @dataclass(frozen=True)
@@ -48,7 +49,7 @@ class MbmssimConfig:
 class Mbmssim:
     def __init__(self, cfg: MbmssimConfig, device=None):
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         self.mm = mm = make_mbsfn_map(cfg.n_rb, cfg.n_id_mbsfn, cfg.subframe)
         self.fp = fp = mm.fp
         Qm = DlschConfig(mcs=cfg.mcs, n_rb=cfg.n_rb).Qm

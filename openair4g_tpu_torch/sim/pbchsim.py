@@ -22,14 +22,14 @@ import torch
 
 from ..config import FrameParms
 from ..convert import wiener_stack_from_reference
-from ..device import cli_device
+from ..device import cli_device, resolve_device
 from ..ops.llr import demap_llr
 from ..phy import ofdm
 from ..phy.channel_est import estimate_channel, make_wiener_stack
 from ..phy.pbch import (make_pbch_map, pack_mib, pbch_blind_decode,
                         pbch_frame_symbols)
 from ..phy.resource_grid import fill_grid, make_grid_map
-from .dlsim import _idx, _noise, _sim_device
+from .dlsim import _idx, _noise
 
 
 @dataclass(frozen=True)
@@ -45,7 +45,7 @@ class PbchsimConfig:
 class Pbchsim:
     def __init__(self, cfg: PbchsimConfig, device=None):
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         self.fp = FrameParms(n_rb=cfg.n_rb, n_id_cell=cfg.n_id_cell)
         self.mib = pack_mib(cfg.n_rb, cfg.sfn)
         self.pm = pm = make_pbch_map(cfg.n_rb, cfg.n_id_cell)

@@ -21,7 +21,7 @@ import torch
 
 from ..config import FrameParms
 from ..convert import wiener_stack_from_reference
-from ..device import cli_device
+from ..device import cli_device, resolve_device
 from ..ops.gold import gold_sequence
 from ..ops.llr import demap_llr
 from ..phy import ofdm
@@ -32,7 +32,8 @@ from ..phy.pdcch import (BITS_PER_CCE, cfi_decode, cfi_encode, dci_encode,
                          pack_dci_format1a, pdcch_scramble_seq,
                          search_space_candidates)
 from ..phy.resource_grid import fill_grid, make_grid_map
-from .dlsim import _idx, _noise, _sim_device
+from ..sched.enb_tx import _qpsk, pcfich_cinit
+from .dlsim import _idx, _noise
 
 
 @dataclass(frozen=True)
@@ -47,26 +48,17 @@ class PdcchsimConfig:
     batch: int = 64
 
 
-def _qpsk(bits: np.ndarray) -> np.ndarray:
-    return (((1 - 2 * bits[0::2]) + 1j * (1 - 2 * bits[1::2]))
-            / np.sqrt(2)).astype(np.complex64)
-
-
-def _pcfich_cinit(subframe: int, nid_cell: int) -> int:
-    return ((subframe + 1) * (2 * nid_cell + 1) << 9) + nid_cell
-
-
 class Pdcchsim:
     def __init__(self, cfg: PdcchsimConfig, device=None):
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         self.fp = fp = FrameParms(n_rb=cfg.n_rb, n_id_cell=cfg.n_id_cell)
         self.crm = crm = make_control_region_map(cfg.n_rb, cfg.n_pdcch,
                                                  cfg.n_id_cell)
         self.gm = make_grid_map(cfg.n_rb, cfg.n_pdcch, cfg.n_id_cell,
                                 cfg.subframe)
         ns = 2 * cfg.subframe
-        pcfich_scr = gold_sequence(_pcfich_cinit(cfg.subframe,
+        pcfich_scr = gold_sequence(pcfich_cinit(cfg.subframe,
                                                  cfg.n_id_cell), 32)
         pcfich_syms = _qpsk(cfi_encode(cfg.n_pdcch)
                             ^ pcfich_scr.astype(np.int8))

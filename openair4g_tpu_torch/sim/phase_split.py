@@ -1,9 +1,9 @@
 """Phase split and device busy share of one step of each multi-antenna
-path, of the SISO 1x2 HARQ path, of the SISO flagship and of the
-full-width uplink on a GPU.
+path, of the SISO 1x2 HARQ path, of the SISO flagship, of the full-width
+uplink and of the full chain at the flagship load on a GPU.
 
     python3 -m openair4g_tpu_torch.sim.phase_split [--out DIR]
-        [--only tm2|tm3|dd|flagship|ul]
+        [--only tm2|tm3|dd|flagship|ul|full]
 
 For each of the flagship (100 PRB, MCS 26, EVA, 1 RX, joint estimation,
 round 0, 8 turbo iterations, batch 128, 24 dB), TM2 (50 PRB, MCS 25, EVA
@@ -11,11 +11,14 @@ round 0, 8 turbo iterations, batch 128, 24 dB), TM2 (50 PRB, MCS 25, EVA
 and the decision-directed 1x2 receiver over 4 HARQ rounds (100 PRB, MCS
 26, EVA, CFI 2, batch 128, 14.6 dB in the dlsim SNR convention), and the
 uplink (Ulsim 100 PRB, MCS 20, EVA, 4 HARQ rounds, batch 128, UCI of 30
-CQI bits, RI and 2 ACK bits, 16 dB): the unwrapped step time over 5
-steps (10 for the flagship); then the same steps with each phase
-function wrapped in torch.cuda.synchronize()-bracketed host timers (the
-names the sim modules imported are patched, so the sync adds to the
-total and nested phases are reported inside their parent); then
+CQI bits, RI and 2 ACK bits, 16 dB), and the full chain (FullChainSim
+100 PRB, MCS 26, EVA, CFI 3, 4 HARQ rounds, batch 128, 22 dB, what
+`fullsim_main -B 100 -m 26 -g EVA -b 128` runs): the unwrapped step
+time over 5 steps (10 for the flagship); then the same steps with each
+phase function wrapped in torch.cuda.synchronize()-bracketed host
+timers (the names the sim modules imported are patched, so the sync
+adds to the total and nested phases are reported inside their parent);
+then
 torch.profiler over 3 unwrapped steps for the device time and busy
 share. With the dd path, the time-domain FIR channel of one round at the
 same shape against the per-subcarrier multiply, by CUDA events. With
@@ -35,7 +38,8 @@ import torch
 from ..ops import turbo as turbo_mod
 from ..phy import ofdm, pdsch
 from ..ops.uci import UciConfig
-from . import channels, dlsim, dlsim_mimo, dlsim_sm, ulsim
+from ..sched import enb_tx, ue_rx
+from . import channels, dlsim, dlsim_mimo, dlsim_sm, fullsim, ulsim
 
 ACC: dict = collections.defaultdict(float)
 CNT: collections.Counter = collections.Counter()
@@ -103,6 +107,13 @@ def patch() -> list:
     p(ulsim, "demap_llr", "  demap_llr (plain)")
     p(ulsim.Ulsim, "_uci_errors", "UCI decode and count (round 0)")
     p(ulsim, "cqi_decode", "  cqi_decode (CC rate dematch, Viterbi)")
+    p(enb_tx.EnbTx, "data_subframe", "EnbTx.data_subframe")
+    p(fullsim, "apply_channel_bins", "channel on the grid (fullsim)")
+    p(fullsim.FullChainSim, "_ue_round", "UE round (FullChainSim)")
+    p(ue_rx.UeRx, "channel", "  estimate_channel")
+    p(ue_rx, "mrc_llr", "  mrc_llr (kernel; PDCCH and PDSCH)")
+    p(fullsim, "dci_blind_decode", "  dci_blind_decode")
+    p(ue_rx.UeRx, "phich", "  PHICH")
     return saved
 
 
@@ -229,7 +240,8 @@ def fir_cost(sim) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler tables")
-    ap.add_argument("--only", choices=("tm2", "tm3", "dd", "flagship", "ul"),
+    ap.add_argument("--only", choices=("tm2", "tm3", "dd", "flagship", "ul",
+                                       "full"),
                     help="run one path (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -266,6 +278,12 @@ def main() -> None:
             n_harq_rounds=4, batch=128,
             uci=UciConfig(o_cqi=30, o_ri=1, o_ack=2)), "cuda")
         run("uplink", sim, 16.0, (sim.wiener(16.0),), out=args.out)
+    if args.only in (None, "full"):
+        sim = fullsim.FullChainSim(fullsim.FullsimConfig(
+            n_rb=100, mcs=26, channel="EVA", n_harq_rounds=4, batch=128),
+            "cuda")
+        run("fullsim", sim, 22.0, (sim.ue.make_wiener(10.0 ** -2.2),),
+            out=args.out)
 
 
 if __name__ == "__main__":

@@ -26,13 +26,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import cli_device
+from ..device import cli_device, resolve_device
 from ..phy.prach import (FORMAT_TIMING, N_ZC, N_ZC_F4, _dft, n_preambles,
                          prach_cp_samples, prach_detect,
                          prach_samples_per_seq, prach_time_detect,
                          prach_time_generate, preamble_shifted,
                          restricted_shifts)
-from .dlsim import _noise, _sim_device
+from .dlsim import _noise
 
 
 @dataclass(frozen=True)
@@ -55,7 +55,7 @@ class PrachsimConfig:
 class Prachsim:
     def __init__(self, cfg: PrachsimConfig, device=None):
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         self.n_zc = N_ZC_F4 if cfg.fmt == 4 else N_ZC
         if cfg.high_speed:
             if cfg.fmt == 4:

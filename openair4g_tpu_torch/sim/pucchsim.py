@@ -20,13 +20,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import cli_device
+from ..device import cli_device, resolve_device
 from ..ops.llr import demap_llr
 from ..phy.pucch import (pucch1_detect, pucch1_slot_symbols, pucch2_equalize,
                          pucch2_slot_symbols, pucch2x_ack_symbol,
                          pucch2x_detect, pucch2x_slot_symbols, rm20_decode,
                          rm20_encode)
-from .dlsim import _sim_device
 
 
 @dataclass(frozen=True)
@@ -45,7 +44,7 @@ class Pucchsim:
         if cfg.fmt not in ("1a", "2", "2a", "2b"):
             raise ValueError(f"fmt={cfg.fmt!r}: one of 1a, 2, 2a, 2b")
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         ns = 2 * cfg.subframe
         d_ref, r_ref = [], []
         if cfg.fmt == "1a":

@@ -12,8 +12,8 @@ import numpy as np
 import torch
 
 from ..config import FrameParms
+from ..device import resolve_device
 from ..phy.sync import CellSearch, estimate_cfo
-from .dlsim import _sim_device
 
 
 @dataclass(frozen=True)
@@ -26,7 +26,7 @@ class ScanConfig:
 class CarrierScan:
     def __init__(self, cfg: ScanConfig, device=None):
         self.cfg = cfg
-        self.device = _sim_device(device)
+        self.device = resolve_device(device)
         self.fp = FrameParms(n_rb=cfg.n_rb)
         self.search = CellSearch(self.fp)
 

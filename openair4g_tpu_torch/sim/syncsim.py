@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 from ..config import FrameParms
-from ..device import cli_device
+from ..device import cli_device, resolve_device
 from ..phy import ofdm
 from ..phy.sync import (CellSearch, center62_bins, estimate_cfo,
                         pss_sequence, sss_sequence)
-from .dlsim import _noise, _sim_device
+from .dlsim import _noise
 
 
 @dataclass(frozen=True)
@@ -40,7 +40,7 @@ class SyncsimConfig:
 class Syncsim:
     def __init__(self, cfg: SyncsimConfig, device=None):
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         self.fp = fp = FrameParms(n_rb=cfg.n_rb,
                                   n_id_cell=3 * cfg.nid1 + cfg.nid2)
         bins = center62_bins(fp)

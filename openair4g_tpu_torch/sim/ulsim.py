@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import FrameParms
+from ..device import resolve_device
 from ..ops.gold import gold_sequence, pusch_cinit
 from ..ops.llr import demap_llr, map_symbols
 from ..ops.segmentation import segment_tb
@@ -42,7 +43,7 @@ from ..phy.scfdma import (make_pusch_map, pusch_extract, pusch_fill_grid_x,
 from ..phy.ulref import pusch_dmrs
 from ..tables.tbs import get_Qm_ul, get_TBS_UL
 from .channels import ChannelModel, apply_channel_bins, apply_channel_time
-from .dlsim import _noise, _sim_device
+from .dlsim import _noise
 
 
 @dataclass(frozen=True)
@@ -88,7 +89,7 @@ class Ulsim:
 
     def __init__(self, cfg: UlsimConfig, device=None):
         self.cfg = cfg
-        self.device = dev = _sim_device(device)
+        self.device = dev = resolve_device(device)
         self.fp = FrameParms(n_rb=cfg.n_rb, n_id_cell=cfg.n_id_cell)
         rb2 = None
         if cfg.hopping_bits is not None:

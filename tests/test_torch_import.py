@@ -10,10 +10,13 @@ import pytest
 import torch
 
 import openair4g_tpu_torch
+from openair4g_tpu_torch.device import (count_launch, launch_counts,
+                                        launch_shapes, reset_launch_counts)
 from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
                                            DlsimFading, DlsimFadingConfig)
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
+from openair4g_tpu_torch.sim.fullsim import FullChainSim, FullsimConfig
 from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
 from openair4g_tpu_torch.sim.pbchsim import Pbchsim, PbchsimConfig
 from openair4g_tpu_torch.sim.pdcchsim import Pdcchsim, PdcchsimConfig
@@ -21,6 +24,8 @@ from openair4g_tpu_torch.sim.prachsim import Prachsim, PrachsimConfig
 from openair4g_tpu_torch.sim.pucchsim import Pucchsim, PucchsimConfig
 from openair4g_tpu_torch.sim.scansim import CarrierScan, ScanConfig
 from openair4g_tpu_torch.sim.syncsim import Syncsim, SyncsimConfig
+from openair4g_tpu_torch.sim.tddsim import TddFrameSim, TddsimConfig
+from openair4g_tpu_torch.sim.ulgrantsim import UlGrantConfig, UlGrantSim
 from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -103,6 +108,46 @@ def test_control_and_sync_slice_modules_are_among_the_checked_ones():
             "openair4g_tpu_torch.sim.mbmssim"} <= names
 
 
+def test_per_tti_slice_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert {"openair4g_tpu_torch.sched",
+            "openair4g_tpu_torch.sched.enb_tx",
+            "openair4g_tpu_torch.sched.ue_rx",
+            "openair4g_tpu_torch.sched.ue_tx",
+            "openair4g_tpu_torch.sched.enb_rx",
+            "openair4g_tpu_torch.sim.fullsim",
+            "openair4g_tpu_torch.sim.framegen",
+            "openair4g_tpu_torch.sim.ulgrantsim",
+            "openair4g_tpu_torch.sim.tddsim",
+            "openair4g_tpu_torch.phy.uespec",
+            "openair4g_tpu_torch.utils",
+            "openair4g_tpu_torch.utils.octave_io"} <= names
+
+
+def test_fullsim_and_framegen_command_lines_run_with_jax_blocked(tmp_path):
+    """fullsim_main at one 6 PRB point and framegen, on the CPU, in one
+    interpreter with jax and the JAX package blocked."""
+    out = tmp_path / "frame.npy"
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['openair4g_tpu'] = None\n"
+            "from openair4g_tpu_torch.sim.harness import fullsim_main\n"
+            "fullsim_main(['-B', '6', '-s', '10', '-S', '10', '-n', '2',\n"
+            "              '-b', '2', '-r', '1', '--device', 'cpu'])\n"
+            f"sys.argv = ['framegen', '-B', '6', '-o', {str(out)!r},\n"
+            "            '--device', 'cpu']\n"
+            "runpy.run_module('openair4g_tpu_torch.sim.framegen',\n"
+            "                 run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.splitlines()
+    assert lines[0].startswith("SNR +10.00 dB: r0:0.0000(0/2)"), lines
+    assert lines[1].startswith("wrote 19200 samples"), lines
+    assert out.exists()
+
+
 def test_control_and_sync_command_lines_run_with_jax_blocked():
     """pbchsim, pdcchsim, syncsim and prachsim, each at one tiny point on
     the CPU, in one interpreter with jax and the JAX package blocked."""
@@ -167,10 +212,14 @@ def test_dlsim_command_line_starts_with_jax_blocked():
     (Syncsim, SyncsimConfig(n_rb=6, batch=2)),
     (CarrierScan, ScanConfig(n_rb=6)),
     (Prachsim, PrachsimConfig(batch=2)),
-    (Mbmssim, MbmssimConfig(n_rb=6, batch=2))],
+    (Mbmssim, MbmssimConfig(n_rb=6, batch=2)),
+    (FullChainSim, FullsimConfig(n_rb=6, batch=2)),
+    (UlGrantSim, UlGrantConfig(n_rb=6, n_prb=4, batch=2)),
+    (TddFrameSim, TddsimConfig(batch=2))],
     ids=["DlsimFading", "DlsimSm", "DlsimTxDiv", "DlsimAwgn", "Ulsim",
          "Pucchsim", "Pdcchsim", "Pbchsim", "Syncsim", "CarrierScan",
-         "Prachsim", "Mbmssim"])
+         "Prachsim", "Mbmssim", "FullChainSim", "UlGrantSim",
+         "TddFrameSim"])
 def test_simulators_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
                                                              sim_cls, cfg):
     """device=None means the card: without one the simulator raises rather
@@ -179,3 +228,17 @@ def test_simulators_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sim_cls(cfg)
     assert sim_cls(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_launches_are_counted_by_kernel_and_by_shape():
+    """count_launch adds one to the kernel's count and one to its (kernel,
+    shape) count; reset_launch_counts clears both."""
+    reset_launch_counts()
+    count_launch("mrc_llr", ((4, 16, 1), 2, True))
+    count_launch("mrc_llr", ((4, 16, 1), 2, True))
+    count_launch("turbo_half_iter", (64, 3840, 240, 24))
+    assert launch_counts()["mrc_llr"] == 2
+    assert launch_shapes() == {("mrc_llr", ((4, 16, 1), 2, True)): 2,
+                               ("turbo_half_iter", (64, 3840, 240, 24)): 1}
+    reset_launch_counts()
+    assert launch_shapes() == {} and not any(launch_counts().values())
