@@ -128,16 +128,44 @@ Phases, in order; any failure raises and the script exits non-zero:
      random inputs of that shape: the flagship load's v2 at 1,408 x 5,760
      and mrc_llr at Qm 6, UlGrantSim's and TddFrameSim's codecs, the TDD
      frame's PCFICH, PDCCH and PDSCH; only v2 and mrc_llr may launch;
+ 34. the system emulator at small size (6 PRB), card against CPU on the
+     same draws (the CPU sim's, kept by TTI): Oaisim in the abstraction
+     mode with EESM, PF and 4 HARQ rounds, with MIESM, TDD, UL traffic
+     and 4 rounds, and the handover walk of tests/test_handover.py;
+     in the full-PHY mode with 2 eNBs and 4 UEs on AWGN and EPA over 2
+     frames with 4 rounds (decoder window 240 on both sides): every
+     per-TTI error flag, every stats array, summary() and the pcap bytes
+     equal, and every abstraction coin flip more than 1e-5 from its BLER;
+ 35. the v2 turbo kernel at the full-PHY oaisim shape (640 x 6,240: 128
+     UEs x 5 blocks of K = 6,144) against its plain version: equal bit
+     for bit;
+ 36. the full-PHY Oaisim at full width (3 eNBs 500 m apart, 128 static
+     UEs, 100 PRB, MCS 16, EPA, 4 HARQ rounds, 6 iterations, full buffer,
+     round robin, TX power 60 dB, 4 frames): every eNB schedules every
+     TTI, no UE at a geometry SINR of 20 dB or more loses a TB, v2
+     launches on every TTI and at 640 x 6,240 only; mean BLER,
+     retransmissions, throughput and ms a TTI; then 1 eNB at 70 dB loses
+     no TB and retransmits none;
+ 37. the abstraction Oaisim at full width (7 eNBs, 1,024 UEs, 100 PRB,
+     MCS 16, EPA, 4 HARQ rounds, UL traffic, TX power 60 dB, 20 frames),
+     with EESM and with MIESM: every eNB schedules every TTI, no kernel
+     launches; TTIs/s;
+ 38. the calibrated BLER tables for MCS 0, 4 and 10 against DlsimAwgn as
+     tests/test_observability.py::test_calibrated_table_matches_full_phy
+     holds them, the full-stack command line with 16 UEs over 2 eNBs
+     (every UE registered and echoed), the 33.401 EEA2/EIA2 vectors
+     through the port's AES, and whether `cryptography` is importable;
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17, 23, 28 and 33 timed, by torch.profiler's device-side events
-     (the kernel alone, without the host's enqueue time that CUDA events
-     around back-to-back calls of a few-µs kernel measure), each beside the
-     launch floor, the device time of an empty <<<1, 32>>> kernel of the
+     6, 7, 11, 17, 23, 28, 33 and 35 timed, by torch.profiler's
+     device-side events (the kernel alone, without the host's enqueue
+     time that CUDA events around back-to-back calls of a few-µs kernel
+     measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
      same library (kernels of different names share a profiler session);
      then the device kernels, copies and fills of one v1 call, which must
      be its one kernel; then the device time a step of phase 13's, 19's,
      24's and 29's paths, with the v2 kernel's share of the uplink, MBSFN
-     and full-chain steps', and of a call of each phase 26 path. It runs
+     and full-chain steps', of a call of each phase 26 path, and of a TTI
+     of phase 36's and 37's Oaisims, with v2's share of the first. It runs
      last: the profiler is started after every path has run, so no path
      is timed in a process that has held a profiling session.
 Each path is driven with the launch counts set to 0 just before it and
@@ -150,10 +178,13 @@ row at the uplink shape, with the uplink paths' launches, one at the
 MBSFN shape, with the MBSFN paths'; each (kernel, shape) of phases 28 and
 33 has a row with the launches of that shape alone in phases 29-32, by
 phase, those a step of the first run where it ran, and its share of its
-bound), then the device JSON line. It needs a CUDA device and imports
+bound; v2 at the full-PHY oaisim shape with phase 36's launches, those a
+TTI, and phases 36's and 37's device time a TTI), then the device JSON
+line. It needs a CUDA device and imports
 nothing of JAX.
 """
 import functools
+import importlib.util
 import itertools
 import json
 import os
@@ -168,6 +199,7 @@ import torch
 from openair4g_tpu_torch import kernels
 from openair4g_tpu_torch.device import (launch_counts, launch_shapes,
                                         reset_launch_counts)
+from openair4g_tpu_torch.epc import crypto
 from openair4g_tpu_torch.ops.equalize_llr import (demap_llr_fused,
                                                   demap_llr_fused_ref,
                                                   mrc_llr, mrc_llr_ref)
@@ -194,7 +226,9 @@ from openair4g_tpu_torch.sim.fullsim import FullChainSim, FullsimConfig
 from openair4g_tpu_torch.sim.harness import dlsim_main, fullsim_main
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
-from openair4g_tpu_torch.sim.phase_split import profile_steps
+from openair4g_tpu_torch.sim.oaisim import (Oaisim, OaisimConfig,
+                                            calibrated_bler_table)
+from openair4g_tpu_torch.sim.phase_split import OAISIM_FULL, profile_steps
 from openair4g_tpu_torch.ops.uci import UciConfig
 from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
 from openair4g_tpu_torch.sim.pbchsim import Pbchsim, PbchsimConfig
@@ -341,7 +375,8 @@ def _step_device_time(fn) -> tuple:
 
 
 def device_times(timings: list, one_launch: tuple, dd: tuple,
-                 ul: tuple, mbms: tuple, steps: list, full: tuple) -> tuple:
+                 ul: tuple, mbms: tuple, steps: list, full: tuple,
+                 frames: list) -> tuple:
     """Phase 16: the launch floor (an empty <<<1, 32>>> kernel of the
     library) and each (label, fn, kernel name, row) that the kernel checks
     queued, timed by _device_ms (the row, if any, takes it as device_ms);
@@ -351,8 +386,11 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
     full-width Mbmssim mbms = ((sim, SNR) with the channel known, (sim,
     SNR) with the MBSFN RS estimate) and of FullChainSim at the flagship
     load full = (sim, SNR), with the v2 kernel's share of each but dd's;
-    then the device time a call of each (label, fn) of steps. Returns the
-    uplink's, the first Mbmssim's and the FullChainSim's figures."""
+    then the device time a call of each (label, fn) of steps; then the
+    device time a TTI of each (label, Oaisim) of frames, a call being one
+    frame of 10 TTIs, with the v2 kernel's share. Returns the uplink's,
+    the first Mbmssim's and the FullChainSim's figures, and those of
+    frames by label."""
     lib = kernels.load()
     stream = torch.cuda.current_stream().cuda_stream
     items = [(lambda: kernels.check(lib.empty_launch(stream), "empty"),
@@ -419,7 +457,20 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
         print(f"{label}: {dev_ms:.2f} ms device time a call over "
               f"{PROFILED_STEPS} profiled calls; {wall:.1f} ms a profiled call"
               " on the host", flush=True)
-    return figures[0], figures[1], figures[3]
+    per_tti = {}
+    for label, sim in frames:
+        dev_ms, v2_ms, v2_n, wall = _step_device_time(
+            lambda: sim.run_frames(1))
+        share = v2_ms / dev_ms if dev_ms else 0.0
+        print(f"{label}: {dev_ms / 10:.3f} ms device time a TTI over "
+              f"{PROFILED_STEPS} profiled frames, the v2 kernel "
+              f"{v2_ms / 10:.3f} ms of it ({share:.1%}, {v2_n} launches "
+              f"seen); {wall / 10:.1f} ms a profiled TTI on the host",
+              flush=True)
+        per_tti[label] = {"tti_device_ms": dev_ms / 10,
+                          "kernel_device_ms_per_tti": v2_ms / 10,
+                          "kernel_share": share, "profiled_tti_ms": wall / 10}
+    return figures[0], figures[1], figures[3], per_tti
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -2370,6 +2421,321 @@ def per_tti_anchors(dev) -> dict:
     return launch_shapes()
 
 
+# ------------------------------------------------------------ oaisim --
+# Phase 34's configurations at 6 PRB: the abstraction mode (EESM and
+# MIESM, 4 HARQ rounds, PF, TDD, UL traffic, the handover walk of
+# tests/test_handover.py) and the full-PHY mode with 2 eNBs and 4 UEs on
+# AWGN and EPA over 2 frames with 4 HARQ rounds, decoder window 240 on
+# both sides. (label, config, frames; None: the handover walk)
+_SMALL_OAISIM = [
+    ("EESM, PF, 4 rounds", dict(n_enb=2, n_ue=8, mcs=10, tx_power_db=24.0,
+                                mac="pf", n_harq_rounds=4, seed=11), 10),
+    ("MIESM, TDD, UL, 4 rounds", dict(n_enb=2, n_ue=6, mcs=10, esm="miesm",
+                                      tx_power_db=30.0, duplex="tdd",
+                                      ul_traffic=True, n_harq_rounds=4,
+                                      seed=1), 10),
+    ("handover", dict(n_enb=2, n_ue=1, mobility="static", handover=True,
+                      a3_ttt_frames=1, seed=3), None),
+    ("full PHY AWGN", dict(n_enb=2, n_ue=4, mcs=20, tx_power_db=45.0,
+                           mode="phy", channel="AWGN", n_harq_rounds=4,
+                           n_turbo_iter=4, seed=2), 2),
+    ("full PHY EPA", dict(n_enb=2, n_ue=4, mcs=16, tx_power_db=45.0,
+                          mode="phy", channel="EPA", n_harq_rounds=4,
+                          n_turbo_iter=4, seed=2), 2),
+]
+# A coin flip decides alike on the card and the CPU when the uniform lies
+# further than this from the BLER (float32 rounding is far below it).
+FLIP_MARGIN = 1e-5
+
+
+def _oaisim_walk(sim) -> None:
+    """tests/test_handover.py's drive: the one UE placed in cell 0, then
+    moved toward cell 1 a frame a step."""
+    sim.ue_xy[0] = [50.0, 0.0]
+    sim._update_links()
+    sim.serving_rrc[:] = np.argmax(sim.p_rx, axis=1)
+    sim._update_links()
+    for x in (50, 150, 250, 330, 420, 480, 480, 480):
+        sim.ue_xy[0] = [float(x), 0.0]
+        sim._update_links()
+        yield x
+
+
+def _oaisim_run(sim, frames, draws) -> tuple:
+    """Run sim (frames, or the handover walk) on `draws` and close its
+    pcap; returns (the per-TTI (abs TTI, sched, err) flags, summary())."""
+    flags = []
+    trace = sim._trace_tti
+
+    def hook(tti, sched, err, tb=None):
+        flags.append((sim._frame * 10 + tti, sched.copy(), err.copy()))
+        return trace(tti, sched, err, tb)
+    sim._trace_tti = hook
+    if frames is None:
+        for _ in _oaisim_walk(sim):
+            out = sim.run_frames(1, draws=draws)
+    else:
+        out = sim.run_frames(frames, draws=draws)
+    sim.pcap.close()
+    return flags, out
+
+
+def check_small_oaisim(dev) -> None:
+    """Phase 34: each _SMALL_OAISIM configuration on the CPU and on the
+    card, on the same draws (the CPU sim's, kept by TTI, and its initial
+    taps): every per-TTI error flag, every stats array, summary()
+    (handover events included) and the pcap bytes must be equal. In the
+    abstraction mode every scheduled UE's uniform must lie more than
+    FLIP_MARGIN from its BLER."""
+    os.makedirs("build", exist_ok=True)
+    for label, case, frames in _SMALL_OAISIM:
+        if case.get("mode") == "phy":
+            case = dict(case, decoder_window=240)
+        cpu, gpu = (Oaisim(OaisimConfig(n_rb=6, **case),
+                           pcap_path=f"build/oaisim_{d}.pcap", device=d)
+                    for d in ("cpu", dev))
+        gpu.taps = cpu.taps.to(dev)
+        kept, blers = {}, []
+        lookup = cpu.table.lookup
+
+        def record(eff):
+            blers.append(lookup(eff))
+            return blers[-1]
+
+        def draw(t):
+            kept[t] = cpu.draw()
+            return kept[t]
+        cpu.table.lookup = record
+        fa, oa = _oaisim_run(cpu, frames, draw)
+        fb, ob = _oaisim_run(gpu, frames, kept.__getitem__)
+        pa, pb = (open(f"build/oaisim_{d}.pcap", "rb").read()
+                  for d in ("cpu", dev))
+        gaps = [float((kept[t].uniforms - b).abs()[torch.as_tensor(s)].min())
+                for (t, s, _), b in zip(fa, blers) if s.any()]
+        if gaps and not min(gaps) > FLIP_MARGIN:
+            raise AssertionError(f"small oaisim {label}: a coin flip within "
+                                 f"{FLIP_MARGIN} of its BLER")
+        if [(t, s.tolist(), e.tolist()) for t, s, e in fa] != \
+                [(t, s.tolist(), e.tolist()) for t, s, e in fb]:
+            raise AssertionError(f"small oaisim {label}: per-TTI flags")
+        for k in cpu.stats:
+            if not np.array_equal(cpu.stats[k], gpu.stats[k]):
+                raise AssertionError(f"small oaisim {label}: stats {k}")
+        for k in oa:
+            if not np.array_equal(oa[k], ob[k]):
+                raise AssertionError(f"small oaisim {label}: summary {k}")
+        if pa != pb or not pa:
+            raise AssertionError(f"small oaisim {label}: pcap bytes")
+        hos = (f", {len(oa['ho_events'])} handovers" if "ho_events" in oa
+               else "")
+        print(f"small oaisim {label}: card = CPU over {len(fa)} downlink "
+              f"TTIs ({sum(int(e.sum()) for _, _, e in fa)} TB errors, "
+              f"{oa['retx_total']} retransmissions, mean BLER "
+              f"{oa['mean_bler']:.4f}{hos}; pcap {len(pa)} bytes; least "
+              f"coin-flip margin {min(gaps) if gaps else None})", flush=True)
+
+
+# Full PHY at full width: 128 UEs x 5 blocks of K = 6,144 (MCS 16, 100
+# PRB: TBS 30,576) decode as 640 rows of N = 6,240 (26 windows of 240)
+# for each eNB; the trellis ends at K + 3 = 6,147.
+OAISIM_ROWS, OAISIM_N, OAISIM_KT = 128 * 5, 6240, 6147
+
+
+def check_turbo_oaisim(dev, gen, timings) -> dict:
+    """Phase 35: v2 at the full-PHY oaisim shape, bit for bit."""
+    return _hold_v2("oaisim full PHY", OAISIM_ROWS, OAISIM_N, TURBO_W,
+                    TURBO_U, dev, gen, timings, pad_from=OAISIM_KT)
+
+
+def oaisim_full_phy(dev) -> tuple:
+    """Phase 36: the full-PHY Oaisim at full width (phase_split's
+    OAISIM_FULL: 3 eNBs 500 m apart, 128 static UEs, 100 PRB, MCS 16, EPA,
+    4 HARQ rounds, 6 iterations, full buffer, RR, TX power 60 dB) over 4
+    frames. Every eNB schedules every TTI (tb_sent + retx = 120), no UE
+    whose geometry SINR is at least 20 dB loses a TB, v2 launches on every
+    TTI at 640 x 6,240 and no other kernel launches. Then 1 eNB at 70 dB
+    loses no TB and retransmits none. Returns (launches by (kernel,
+    shape), v2 launches a TTI, the 3-eNB sim)."""
+    sim = Oaisim(OaisimConfig(**OAISIM_FULL), device=dev)
+    per_tti = []
+    tti_phy = sim._tti_phy
+
+    def counted(*args):
+        n = launch_counts()["turbo_half_iter"]
+        err = tti_phy(*args)
+        per_tti.append(launch_counts()["turbo_half_iter"] - n)
+        return err
+    sim._tti_phy = counted
+    frame_s = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(4):
+        t0 = time.perf_counter()
+        out = sim.run_frames(1)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    counts, shapes = launch_counts(), launch_shapes()
+    st = sim.stats
+    U = sim.cfg.n_ue
+    sig = sim.p_rx[np.arange(U), sim.serving]
+    sinr_db = 10 * np.log10(sig / (sim.p_rx.sum(1) - sig + 1.0))
+    strong = sinr_db >= 20.0
+    lost_strong = int(st["tb_err"][strong].sum())
+    print(f"oaisim full PHY 3 eNBs x 128 UEs 100 PRB MCS 16 EPA 4 rounds, 4 "
+          f"frames: mean BLER {out['mean_bler']:.4f}, TBs sent "
+          f"{int(st['tb_sent'].sum())}, lost {int(st['tb_err'].sum())}, "
+          f"retransmissions {out['retx_total']}, sum throughput "
+          f"{out['sum_throughput_mbps']:.2f} Mbit/s; {int(strong.sum())} UEs "
+          f"at geometry SINR >= 20 dB lost {lost_strong} TBs; "
+          f"{np.mean(frame_s[1:]) / 10 * 1e3:.1f} ms a TTI over frames 2-4 "
+          f"({frame_s[0] / 10 * 1e3:.1f} ms in frame 1); v2 launches a TTI "
+          f"{min(per_tti)}-{max(per_tti)} (mean {np.mean(per_tti):.1f})",
+          flush=True)
+    print(f"launches over the 4 frames: {counts}; by shape {shapes}",
+          flush=True)
+    if int(st["tb_sent"].sum() + st["retx"].sum()) != 3 * 40:
+        raise AssertionError(f"oaisim full PHY: {st['tb_sent'].sum()} + "
+                             f"{st['retx'].sum()} grants, not 120")
+    if lost_strong:
+        raise AssertionError(f"oaisim full PHY: {lost_strong} TBs lost at "
+                             "geometry SINR >= 20 dB")
+    if len(per_tti) != 40 or min(per_tti) == 0:
+        raise AssertionError(f"oaisim full PHY: v2 launches a TTI {per_tti}")
+    if set(shapes) != {("turbo_half_iter", (OAISIM_ROWS, OAISIM_N, TURBO_W,
+                                            TURBO_U))}:
+        raise AssertionError(f"oaisim full PHY launched {shapes}")
+    one = Oaisim(OaisimConfig(**dict(OAISIM_FULL, n_enb=1,
+                                     tx_power_db=70.0)), device=dev)
+    reset_launch_counts()
+    out1 = one.run_frames(4)
+    torch.cuda.synchronize()
+    shapes = _sum_shapes(shapes, launch_shapes())
+    st1 = one.stats
+    print(f"oaisim full PHY 1 eNB x 128 UEs at 70 dB, 4 frames: TBs sent "
+          f"{int(st1['tb_sent'].sum())}, lost {int(st1['tb_err'].sum())}, "
+          f"retransmissions {out1['retx_total']}, sum throughput "
+          f"{out1['sum_throughput_mbps']:.2f} Mbit/s; v2 launches "
+          f"{launch_counts()['turbo_half_iter']}", flush=True)
+    if st1["tb_err"].sum() or out1["retx_total"] or \
+            st1["tb_sent"].sum() != 40:
+        raise AssertionError(f"oaisim 1 eNB at 70 dB: {out1}")
+    return shapes, float(np.mean(per_tti)), sim
+
+
+# The abstraction mode at full width, at phase 36's TX power.
+OAISIM_ABS_FULL = dict(n_enb=7, n_ue=1024, n_rb=100, mcs=16, channel="EPA",
+                       n_harq_rounds=4, ul_traffic=True, tx_power_db=60.0)
+
+
+def oaisim_abstraction_full(dev) -> list:
+    """Phase 37: the abstraction Oaisim at full width (7 eNBs, 1,024 UEs,
+    100 PRB, MCS 16, EPA, 4 HARQ rounds, UL traffic, TX power 60 dB; the
+    defaults' random walk at 1 m/s, full buffer, RR) over 20 frames, with
+    EESM and with MIESM: every eNB schedules every TTI (tb_sent + retx =
+    1,400) and no kernel launches; TTIs/s on the host clock. Returns
+    [(label, sim)] for phase 16."""
+    sims = []
+    for esm in ("eesm", "miesm"):
+        sim = Oaisim(OaisimConfig(**OAISIM_ABS_FULL, esm=esm), device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sim.run_frames(20)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = sim.stats
+        print(f"oaisim abstraction {esm.upper()} 7 eNBs x 1,024 UEs 100 PRB "
+              f"MCS 16 EPA 4 rounds UL on, 20 frames: mean BLER "
+              f"{out['mean_bler']:.4f}, retransmissions {out['retx_total']}"
+              f", DL {out['sum_throughput_mbps']:.2f} and UL "
+              f"{out['ul_throughput_mbps']:.2f} Mbit/s; {200 / dt:.1f} TTIs/s"
+              f" ({dt:.2f} s)", flush=True)
+        if int(st["tb_sent"].sum() + st["retx"].sum()) != 7 * 200:
+            raise AssertionError(f"oaisim {esm}: {st['tb_sent'].sum()} + "
+                                 f"{st['retx'].sum()} grants, not 1,400")
+        _no_kernel(f"oaisim abstraction {esm}")
+        sims.append((f"oaisim abstraction {esm.upper()} full width", sim))
+    return sims
+
+
+def oaisim_anchors(dev) -> None:
+    """Phase 38: tests/test_observability.py::test_calibrated_table_matches
+    _full_phy on the card (the calibrated table's knee +- 0.5 dB against
+    DlsimAwgn at MCS 0, 4 and 10); the full-stack command line with 16 UEs
+    over 2 eNBs; the 33.401 EEA2/EIA2 vectors through the port's AES; and
+    whether `cryptography` is importable here (the port never imports
+    it)."""
+    for mcs in (0, 4, 10):
+        table = calibrated_bler_table(mcs, n_frames=256, n_pts=7, batch=128,
+                                      device=dev)
+        sim = DlsimAwgn(DlsimConfig(mcs=mcs, n_rb=25, batch=128), dev)
+        knee = float(np.interp(np.log(0.5), table.log_bler[::-1],
+                               table.snr_db[::-1]))
+        for probe in (knee - 0.5, knee + 0.5):
+            errs, trials = sim.run_snr(probe, 256)
+            bler = errs / trials
+            pred = float(np.exp(np.interp(probe, table.snr_db,
+                                          table.log_bler)))
+            print(f"calibrated table MCS {mcs}: knee {knee:.2f} dB, at "
+                  f"{probe:.2f} dB BLER {bler:.4f} against the table's "
+                  f"{pred:.4f}", flush=True)
+            if not ((bler > 0.5) == (pred > 0.5) or abs(bler - pred) < 0.25):
+                raise AssertionError(f"calibrated table MCS {mcs} at {probe}"
+                                     f": {bler} vs {pred}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "openair4g_tpu_torch.sim.oaisim_fullstack", "-u",
+                        "16", "-e", "2"], cwd=root, capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode:
+        raise AssertionError(f"oaisim_fullstack: {r.stderr[-2000:]}")
+    res = json.loads(r.stdout)
+    print(f"oaisim_fullstack -u 16 -e 2: {res['mme_registered']} registered,"
+          f" all echoed {res['all_echoed']}, {res['ttis']} TTIs, stats "
+          f"{res['stats']} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not (res["all_registered"] and res["all_echoed"]
+            and res["mme_registered"] == 16):
+        raise AssertionError(f"oaisim_fullstack: {res}")
+    for d, count, bearer, key, msg, bl, want in _EEA2_33401:
+        if crypto.eea2(bytes.fromhex(key), count, bearer, d,
+                       bytes.fromhex(msg), bl) != bytes.fromhex(want):
+            raise AssertionError(f"EEA2 33.401 vector COUNT {count:#x}")
+    for d, count, bearer, key, msg, bl, want in _EIA2_33401:
+        if crypto.eia2(bytes.fromhex(key), count, bearer, d,
+                       bytes.fromhex(msg), bl) != bytes.fromhex(want):
+            raise AssertionError(f"EIA2 33.401 vector COUNT {count:#x}")
+    found = importlib.util.find_spec("cryptography") is not None
+    print(f"33.401 EEA2 ({len(_EEA2_33401)}) and EIA2 ({len(_EIA2_33401)}) "
+          f"vectors pass through the port's AES; `cryptography` is "
+          f"{'' if found else 'not '}importable here, and the port does not "
+          "import it", flush=True)
+
+
+# TS 33.401 Annex C.1 / C.2 (as tests/test_crypto_33401.py has them):
+# (direction, count, bearer, key, message, bit length, expected)
+_EEA2_33401 = [
+    (1, 0x398A59B4, 0x15, "d3c5d592327fb11c4035c6680af8c6d1",
+     "981ba6824c1bfb1ab485472029b71d808ce33e2cc3c0b5fc1f3de8a6dc66b1f0",
+     253,
+     "e9fed8a63d155304d71df20bf3e82214b20ed7dad2f233dc3c22d7bdeeed8e78"),
+    (0, 0x544D49CD, 0x04, "0a8b6bd8d9b08b08d64e32d1817777fb",
+     "fd40a41d370a1f65745095687d47ba1d36d2349e23f644392c8ea9c49d40c132"
+     "71aff264d0f24800", 310,
+     "75750d37b4bba2a4dedb34235bd68c6645acdaaca48138a3b0c471e2a7041a57"
+     "6423d2927287f000"),
+]
+_EIA2_33401 = [
+    (1, 0x398A59B4, 0x1A, "d3c5d592327fb11c4035c6680af8c6d1",
+     "484583d5afe082ae", 64, "b93787e6"),
+    (1, 0x36AF6144, 0x0F, "83fd23a244a74cf358da3019f1722635",
+     "35c68716633c66fb750c266865d53c11ea05b1e9fa49c8398d48e1efa5909d39"
+     "47902837f5ae96d5a05bc8d61ca8dbef1b13a4b4abfe4fb1006045b674bb5472"
+     "9304c382be53a5af05556176f6eaa2ef1d05e4b083181ee674cda5a485f74d7a",
+     768, "e657e182"),
+]
+
+
 def _phase(n: int, title: str, fn, *args):
     """Run one phase, with its number, title and seconds printed."""
     print(f"== phase {n}: {title}", flush=True)
@@ -2465,9 +2831,18 @@ def main() -> None:
                    check_kernels_launched, dev, gen, timings,
                    _sum_shapes(tti[29], tti[30], tti[31]), held,
                    {k: what for k, (_, what) in tti_per_step.items()})
-    ul_dev, mb_dev, full_dev = _phase(
+    _phase(34, "small oaisim inputs, card against CPU", check_small_oaisim,
+           dev)
+    turbo_oai = _phase(35, "turbo v2 kernel at the full-PHY oaisim shape",
+                       check_turbo_oaisim, dev, gen, timings)
+    oai_shapes, oai_per_tti, oai_sim = _phase(
+        36, "full-PHY oaisim full width", oaisim_full_phy, dev)
+    oai_frames = [("oaisim full PHY full width", oai_sim)] + _phase(
+        37, "abstraction oaisim full width", oaisim_abstraction_full, dev)
+    _phase(38, "oaisim anchors, full stack, AES", oaisim_anchors, dev)
+    ul_dev, mb_dev, full_dev, oai_dev = _phase(
         16, "device time of each kernel (run last)", device_times, timings,
-        v1_call, dd_sim, ul_sim, mb_sim, steps_20mhz, full_sim)
+        v1_call, dd_sim, ul_sim, mb_sim, steps_20mhz, full_sim, oai_frames)
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
     rows = [
@@ -2532,6 +2907,24 @@ def main() -> None:
             replaces=f"openair4g_tpu/ops/{tpu}",
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
+    # The system slice's row: v2 at the full-PHY oaisim shape, with phase
+    # 36's launches at it, those a TTI, the device time a TTI of phases 36
+    # and 37 and v2's share of phase 36's.
+    oai, oai_label = oai_dev, oai_frames[0][0]
+    rows.append(dict(
+        name="turbo_half_iter", route="cuda",
+        source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
+        replaces="openair4g_tpu/ops/turbo_pallas.py:219",
+        launches=oai_shapes[("turbo_half_iter", (OAISIM_ROWS, OAISIM_N,
+                                                 TURBO_W, TURBO_U))],
+        launches_per_tti=oai_per_tti,
+        oaisim_tti_device_ms=oai[oai_label]["tti_device_ms"],
+        oaisim_kernel_device_ms_per_tti=oai[oai_label][
+            "kernel_device_ms_per_tti"],
+        oaisim_kernel_share=oai[oai_label]["kernel_share"],
+        oaisim_abstraction_tti_device_ms={
+            label: oai[label]["tti_device_ms"] for label, _ in oai_frames[1:]},
+        **turbo_oai, share=turbo_oai["bound_ms"] / turbo_oai["device_ms"]))
     rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None

@@ -1,9 +1,10 @@
 """Phase split and device busy share of one step of each multi-antenna
 path, of the SISO 1x2 HARQ path, of the SISO flagship, of the full-width
-uplink and of the full chain at the flagship load on a GPU.
+uplink, of the full chain at the flagship load and of the full-PHY system
+emulator at full width on a GPU.
 
     python3 -m openair4g_tpu_torch.sim.phase_split [--out DIR]
-        [--only tm2|tm3|dd|flagship|ul|full]
+        [--only tm2|tm3|dd|flagship|ul|full|oaisim]
 
 For each of the flagship (100 PRB, MCS 26, EVA, 1 RX, joint estimation,
 round 0, 8 turbo iterations, batch 128, 24 dB), TM2 (50 PRB, MCS 25, EVA
@@ -13,8 +14,12 @@ and the decision-directed 1x2 receiver over 4 HARQ rounds (100 PRB, MCS
 uplink (Ulsim 100 PRB, MCS 20, EVA, 4 HARQ rounds, batch 128, UCI of 30
 CQI bits, RI and 2 ACK bits, 16 dB), and the full chain (FullChainSim
 100 PRB, MCS 26, EVA, CFI 3, 4 HARQ rounds, batch 128, 22 dB, what
-`fullsim_main -B 100 -m 26 -g EVA -b 128` runs): the unwrapped step
-time over 5 steps (10 for the flagship); then the same steps with each
+`fullsim_main -B 100 -m 26 -g EVA -b 128` runs), and the full-PHY
+Oaisim (3 eNBs 500 m apart, 128 static UEs, 100 PRB, MCS 16, EPA, 4 HARQ
+rounds, 6 turbo iterations, full buffer, round robin, TX power 60 dB; a
+step is a frame of 10 TTIs, each reported a TTI): the unwrapped step
+time over 5 steps (10 for the flagship, 2 frames for Oaisim); then the
+same steps with each
 phase function wrapped in torch.cuda.synchronize()-bracketed host
 timers (the names the sim modules imported are patched, so the sync
 adds to the total and nested phases are reported inside their parent);
@@ -39,7 +44,7 @@ from ..ops import turbo as turbo_mod
 from ..phy import ofdm, pdsch
 from ..ops.uci import UciConfig
 from ..sched import enb_tx, ue_rx
-from . import channels, dlsim, dlsim_mimo, dlsim_sm, fullsim, ulsim
+from . import channels, dlsim, dlsim_mimo, dlsim_sm, fullsim, oaisim, ulsim
 
 ACC: dict = collections.defaultdict(float)
 CNT: collections.Counter = collections.Counter()
@@ -114,6 +119,9 @@ def patch() -> list:
     p(ue_rx, "mrc_llr", "  mrc_llr (kernel; PDCCH and PDSCH)")
     p(fullsim, "dci_blind_decode", "  dci_blind_decode")
     p(ue_rx.UeRx, "phich", "  PHICH")
+    p(oaisim.Oaisim, "_couple", "coupling of every eNB to every UE (oaisim)")
+    p(oaisim, "estimate_channel", "estimate_channel (oaisim, an eNB's)")
+    p(oaisim, "demap_llr", "demap_llr (plain; oaisim, an eNB's)")
     return saved
 
 
@@ -174,14 +182,25 @@ def run(label: str, sim, snr: float, state: tuple, n_steps: int = 5,
     print(f"== {label}: unwrapped step {plain * 1e3:.1f} ms "
           f"({sim.cfg.batch / plain:.1f} subframes/s{per_round}), synced "
           f"step {synced * 1e3:.1f} ms")
-    for k, v in sorted(ACC.items(), key=lambda kv: -kv[1]):
-        print(f"  {k:45s} {v / n_steps * 1e3:8.2f} ms  "
-              f"{v / n_steps / synced * 100:5.1f} %  ({CNT[k] / n_steps:.0f}"
-              f" calls/step)")
+    _print_split(n_steps, synced, "step")
     events, dev_us, wall = profile_steps(lambda: sim.step(gen, n0, *state))
     print(f"  profiler: {dev_us / 3 / 1e3:.1f} ms device time per step, "
           f"{wall * 1e3:.1f} ms profiled step; busy "
           f"{dev_us / 3 / 1e6 / plain * 100:.1f} % of the unwrapped step")
+    _print_profile(label, events, 3, out)
+
+
+def _print_split(n: int, synced: float, unit: str) -> None:
+    """ACC's phases over n steps (or TTIs) of `synced` seconds each."""
+    for k, v in sorted(ACC.items(), key=lambda kv: -kv[1]):
+        print(f"  {k:45s} {v / n * 1e3:8.2f} ms  "
+              f"{v / n / synced * 100:5.1f} %  ({CNT[k] / n:.0f}"
+              f" calls/{unit})")
+
+
+def _print_profile(label: str, events, n: int, out: str | None) -> None:
+    """The 8 kernels with the most device time over n steps (or TTIs),
+    and with `out` the profiler's table in out/prof_<label>.txt."""
     if out:
         os.makedirs(out, exist_ok=True)
         with open(os.path.join(out, f"prof_{label}.txt"), "w") as f:
@@ -191,8 +210,47 @@ def run(label: str, sim, snr: float, state: tuple, n_steps: int = 5,
                  key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         print(f"    {e.key[:60]:60s} "
-              f"{e.self_device_time_total / 3 / 1e3:7.2f} ms"
-              f"  x{e.count / 3:.0f}")
+              f"{e.self_device_time_total / n / 1e3:7.2f} ms"
+              f"  x{e.count / n:.0f}")
+
+
+# The full-width full-PHY system emulator (chip_smoke.py phase 36).
+OAISIM_FULL = dict(n_enb=3, n_ue=128, n_rb=100, mcs=16, channel="EPA",
+                   mode="phy", n_harq_rounds=4, n_turbo_iter=6,
+                   mobility="static", traffic="full", mac="rr",
+                   tx_power_db=60.0)
+
+
+def run_oaisim(n_frames: int = 2, out: str | None = None) -> None:
+    """run() for the full-PHY Oaisim: a step is run_frames(1), 10 TTIs,
+    and each figure is given a TTI; the decode rows count one call an eNB
+    a TTI."""
+    sim = oaisim.Oaisim(oaisim.OaisimConfig(**OAISIM_FULL), device="cuda")
+    sim.run_frames(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run_frames(n_frames)
+    torch.cuda.synchronize()
+    n_tti = 10 * n_frames
+    plain = (time.perf_counter() - t0) / n_tti
+    ACC.clear()
+    CNT.clear()
+    saved = patch()
+    try:
+        t0 = time.perf_counter()
+        sim.run_frames(n_frames)
+        torch.cuda.synchronize()
+        synced = (time.perf_counter() - t0) / n_tti
+    finally:
+        unpatch(saved)
+    print(f"== oaisim full PHY: unwrapped {plain * 1e3:.1f} ms a TTI, "
+          f"synced {synced * 1e3:.1f} ms a TTI")
+    _print_split(n_tti, synced, "TTI")
+    events, dev_us, wall = profile_steps(lambda: sim.run_frames(1))
+    print(f"  profiler: {dev_us / 30 / 1e3:.1f} ms device time a TTI, "
+          f"{wall / 10 * 1e3:.1f} ms a profiled TTI; busy "
+          f"{dev_us / 30 / 1e6 / plain * 100:.1f} % of the unwrapped TTI")
+    _print_profile("oaisim", events, 30, out)
 
 
 def _event_ms(fn, n: int = 20) -> float:
@@ -241,7 +299,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler tables")
     ap.add_argument("--only", choices=("tm2", "tm3", "dd", "flagship", "ul",
-                                       "full"),
+                                       "full", "oaisim"),
                     help="run one path (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -284,6 +342,8 @@ def main() -> None:
             "cuda")
         run("fullsim", sim, 22.0, (sim.ue.make_wiener(10.0 ** -2.2),),
             out=args.out)
+    if args.only in (None, "oaisim"):
+        run_oaisim(out=args.out)
 
 
 if __name__ == "__main__":

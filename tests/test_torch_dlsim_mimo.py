@@ -209,8 +209,8 @@ def test_phase_split_wraps_each_phase_and_restores_it():
               dlsim_mimo.demap_llr_fused)
     saved = phase_split.patch()
     try:
-        # 33 downlink phases, 10 uplink, 7 of the full chain
-        assert len(saved) == 50
+        # 33 downlink phases, 10 uplink, 7 of the full chain, 3 of oaisim
+        assert len(saved) == 53
         assert all(getattr(o, a).__wrapped__ is f for o, a, f in saved)
     finally:
         phase_split.unpatch(saved)

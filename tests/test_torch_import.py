@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import torch and never jax, nor anything of
 the JAX package openair4g_tpu; the simulators run on the card unless
 their caller asks for the CPU."""
+import json
 import pkgutil
 import subprocess
 import sys
@@ -18,6 +19,7 @@ from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 from openair4g_tpu_torch.sim.fullsim import FullChainSim, FullsimConfig
 from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
+from openair4g_tpu_torch.sim.oaisim import Oaisim, OaisimConfig
 from openair4g_tpu_torch.sim.pbchsim import Pbchsim, PbchsimConfig
 from openair4g_tpu_torch.sim.pdcchsim import Pdcchsim, PdcchsimConfig
 from openair4g_tpu_torch.sim.prachsim import Prachsim, PrachsimConfig
@@ -125,6 +127,62 @@ def test_per_tti_slice_modules_are_among_the_checked_ones():
             "openair4g_tpu_torch.utils.octave_io"} <= names
 
 
+SYSTEM_SLICE = ["openair4g_tpu_torch.sim.abstraction",
+                "openair4g_tpu_torch.sim.oaisim",
+                "openair4g_tpu_torch.sim.oaisim_fullstack",
+                "openair4g_tpu_torch.utils.log",
+                "openair4g_tpu_torch.utils.opt",
+                "openair4g_tpu_torch.utils.msc"] + [
+    f"openair4g_tpu_torch.{pkg}.{name}" for pkg, names in (
+        ("mac", ("mux", "ra", "rlc", "rohc", "pdcp", "scheduler", "ue_mac",
+                 "ul_scheduler")),
+        ("rrc", ("messages", "phy_config", "enb", "ue", "handover",
+                 "paging")),
+        ("epc", ("nas", "s1ap", "gtpu", "sctp_lite", "hss", "sgw",
+                 "security", "mme", "enb_app", "ue_nas", "crypto")))
+    for name in names] + ["openair4g_tpu_torch.mac", "openair4g_tpu_torch.rrc",
+                          "openair4g_tpu_torch.epc"]
+
+
+def test_system_slice_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert set(SYSTEM_SLICE) <= names
+
+
+def test_system_slice_and_fullstack_command_line_run_without_cryptography():
+    """The system simulators, MAC/RLC/PDCP, RRC and EPC import with jax,
+    the JAX package and `cryptography` blocked; in that interpreter the
+    full-stack command line attaches and echoes 4 UEs (EEA2/EIA2 through
+    the port's own AES) and a full-PHY Oaisim runs a frame on the CPU."""
+    code = ("import importlib, runpy, sys\n"
+            "for m in ('jax', 'openair4g_tpu', 'cryptography'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            f"for name in {SYSTEM_SLICE!r}:\n"
+            "    importlib.import_module(name)\n"
+            "from openair4g_tpu_torch.sim.oaisim import Oaisim, OaisimConfig\n"
+            "out = Oaisim(OaisimConfig(n_enb=2, n_ue=2, n_rb=6, mcs=0,\n"
+            "                          tx_power_db=55.0, mode='phy',\n"
+            "                          channel='AWGN', n_turbo_iter=2),\n"
+            "             device='cpu').run_frames(1)\n"
+            "assert out['frames'] == 1\n"
+            "sys.argv = ['oaisim_fullstack', '-u', '4']\n"
+            "runpy.run_module('openair4g_tpu_torch.sim.oaisim_fullstack',\n"
+            "                 run_name='__main__')\n"
+            "leaked = sorted(k for k, v in sys.modules.items() if v is not None\n"
+            "                and k.split('.')[0] in ('jax', 'openair4g_tpu',\n"
+            "                                        'cryptography'))\n"
+            "assert not leaked, leaked\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = json.loads(r.stdout)
+    assert res["all_registered"] and res["all_echoed"]
+    assert res["mme_registered"] == 4 and res["int_failures"] == 0
+
+
 def test_fullsim_and_framegen_command_lines_run_with_jax_blocked(tmp_path):
     """fullsim_main at one 6 PRB point and framegen, on the CPU, in one
     interpreter with jax and the JAX package blocked."""
@@ -215,11 +273,13 @@ def test_dlsim_command_line_starts_with_jax_blocked():
     (Mbmssim, MbmssimConfig(n_rb=6, batch=2)),
     (FullChainSim, FullsimConfig(n_rb=6, batch=2)),
     (UlGrantSim, UlGrantConfig(n_rb=6, n_prb=4, batch=2)),
-    (TddFrameSim, TddsimConfig(batch=2))],
+    (TddFrameSim, TddsimConfig(batch=2)),
+    (Oaisim, OaisimConfig(n_enb=1, n_ue=2, n_rb=6)),
+    (Oaisim, OaisimConfig(n_enb=1, n_ue=2, n_rb=6, mode="phy"))],
     ids=["DlsimFading", "DlsimSm", "DlsimTxDiv", "DlsimAwgn", "Ulsim",
          "Pucchsim", "Pdcchsim", "Pbchsim", "Syncsim", "CarrierScan",
          "Prachsim", "Mbmssim", "FullChainSim", "UlGrantSim",
-         "TddFrameSim"])
+         "TddFrameSim", "Oaisim abstraction", "Oaisim full PHY"])
 def test_simulators_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
                                                              sim_cls, cfg):
     """device=None means the card: without one the simulator raises rather
