@@ -155,8 +155,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      holds them, the full-stack command line with 16 UEs over 2 eNBs
      (every UE registered and echoed), the 33.401 EEA2/EIA2 vectors
      through the port's AES, and whether `cryptography` is importable;
+ 39. the single-UE capstone at the reference test's size (25 PRB, 12 dB,
+     seed 0; decoder window 240 on both sides) on the CPU and on the
+     card: the result (every flag, TTIs, PHY runs, the trace), the pcap
+     bytes and the MSC text equal; only v2 launches;
+ 40. FullStackSim at 100 PRB: the ladder (12 dB, seed 0) with every
+     assertion of tests/test_capstone.py::test_full_stack_over_the_air
+     and the JAX run's 53 TTIs and PHY runs, the 450 B NAS ladder and the
+     mobile-terminated attach through paging with their reference tests'
+     assertions; the ms of each DL, UL and PRACH PHY TTI, v2's launches by
+     shape, each run's seconds;
+ 41. MultiUeSim at 100 PRB: 4 UEs under the PF scheduler on measured CQI
+     (18 dB, a 9 dB spread, seed 1), 2 UEs (15 dB, seed 2) and then
+     HandoverPhySim, gated by the reference tests' assertions, with the
+     counts beside the JAX run's at 100 PRB and ms a TTI; then v2 against
+     its plain version, bit for bit, at every shape phases 39-41
+     launched (batch-1 rows of one code block);
+ 43. the native runtime at 20 MHz (run before 42): ring, ITTI queue and
+     scheduler round trips; a SoftModem paced at 1 ms with 2 workers over
+     a 100 PRB framegen frame ten times over, each subframe's OFDM
+     demodulation and PSS correlation on the card, the PSS found in
+     subframes 0 and 5 of every frame (missed deadlines and µs a subframe
+     printed, not gated); an RrhLoopback round trip of a 100 PRB subframe
+     with AWGN, its hard decisions exact;
+ 42. observability on the flagship (phase 5's configuration): sweep with
+     profile=True prints the time_meas table, each stage counted once a
+     trial; the step time with the profiler on and off, in turns; then
+     trace_dir writes a trace with the dlsim.step span and
+     turbo_half_iter_kernel device events (this holds a profiler
+     session, so it runs after every other path);
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17, 23, 28, 33 and 35 timed, by torch.profiler's
+     6, 7, 11, 17, 23, 28, 33, 35 and 41 timed, by torch.profiler's
      device-side events (the kernel alone, without the host's enqueue
      time that CUDA events around back-to-back calls of a few-µs kernel
      measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
@@ -165,7 +194,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      be its one kernel; then the device time a step of phase 13's, 19's,
      24's and 29's paths, with the v2 kernel's share of the uplink, MBSFN
      and full-chain steps', of a call of each phase 26 path, and of a TTI
-     of phase 36's and 37's Oaisims, with v2's share of the first. It runs
+     of phase 36's and 37's Oaisims, with v2's share of the first, and of
+     one 100 PRB capstone DL PHY TTI and one 4-UE multi-UE TTI. It runs
      last: the profiler is started after every path has run, so no path
      is timed in a process that has held a profiling session.
 Each path is driven with the launch counts set to 0 just before it and
@@ -179,16 +209,22 @@ MBSFN shape, with the MBSFN paths'; each (kernel, shape) of phases 28 and
 33 has a row with the launches of that shape alone in phases 29-32, by
 phase, those a step of the first run where it ran, and its share of its
 bound; v2 at the full-PHY oaisim shape with phase 36's launches, those a
-TTI, and phases 36's and 37's device time a TTI), then the device JSON
+TTI, and phases 36's and 37's device time a TTI; v2 at each capstone
+shape with its launches by phase in 39-41, the device time of a capstone
+DL PHY TTI and of a multi-UE TTI, the SoftModem's missed deadlines and
+the flagship step with the profiler on and off), then the device JSON
 line. It needs a CUDA device and imports
 nothing of JAX.
 """
+import contextlib
 import functools
 import importlib.util
+import io
 import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -197,6 +233,7 @@ import numpy as np
 import torch
 
 from openair4g_tpu_torch import kernels
+from openair4g_tpu_torch.config import FrameParms
 from openair4g_tpu_torch.device import (launch_counts, launch_shapes,
                                         reset_launch_counts)
 from openair4g_tpu_torch.epc import crypto
@@ -212,12 +249,22 @@ from openair4g_tpu_torch.ops.gold import scramble_bits
 from openair4g_tpu_torch.ops.llr import map_symbols
 from openair4g_tpu_torch.phy.control_region import make_control_region_map
 from openair4g_tpu_torch.phy.dci_formats import n_rbg, pack_dci_format1
-from openair4g_tpu_torch.phy.ofdm import ofdm_demodulate
+from openair4g_tpu_torch.phy.ofdm import ofdm_demodulate, ofdm_modulate
 from openair4g_tpu_torch.phy.pdcch import ue_search_candidates
-from openair4g_tpu_torch.phy.resource_grid import make_grid_map
+from openair4g_tpu_torch.phy.pdsch import DlschCodec
+from openair4g_tpu_torch.phy.resource_grid import (extract_data_res,
+                                                   fill_grid, make_grid_map)
+from openair4g_tpu_torch.phy.sync import CellSearch
+from openair4g_tpu_torch.rrc.paging import (PagingConfig, is_paging_occasion,
+                                            ue_paging_id)
 from openair4g_tpu_torch.phy.srs import SrsConfig
 from openair4g_tpu_torch.sched import (CellConfig, EnbRx, EnbTx, UeRx, UeTx,
                                        UeUlConfig)
+from openair4g_tpu_torch.sim import capstone as capstone_mod
+from openair4g_tpu_torch.sim.capstone import (SI_RNTI, CapstoneConfig,
+                                              FullStackSim)
+from openair4g_tpu_torch.sim.capstone_multiue import (HandoverPhySim,
+                                                      MultiUeSim)
 from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
                                            DlsimFading, DlsimFadingConfig,
                                            dlsim_snr_offset_db)
@@ -241,6 +288,10 @@ from openair4g_tpu_torch.sim.syncsim import Syncsim, SyncsimConfig
 from openair4g_tpu_torch.sim.tddsim import TddFrameSim, TddsimConfig
 from openair4g_tpu_torch.sim.ulgrantsim import UlGrantConfig, UlGrantSim
 from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
+from openair4g_tpu_torch.utils import profiler
+from openair4g_tpu_torch.utils.opt import (DIR_DL, DIR_UL, KIND_IP, KIND_MAC,
+                                           read_pcap)
+from openair4g_tpu_torch.utils.tracing import trace_artifacts
 
 # Flagship shapes: 128 subframes x 11 code blocks of K = 5632 decode as
 # 1,408 rows of N = 5760 (24 windows of W = 240); 15,000 data REs and
@@ -376,7 +427,7 @@ def _step_device_time(fn) -> tuple:
 
 def device_times(timings: list, one_launch: tuple, dd: tuple,
                  ul: tuple, mbms: tuple, steps: list, full: tuple,
-                 frames: list) -> tuple:
+                 frames: list, top_events_of=()) -> tuple:
     """Phase 16: the launch floor (an empty <<<1, 32>>> kernel of the
     library) and each (label, fn, kernel name, row) that the kernel checks
     queued, timed by _device_ms (the row, if any, takes it as device_ms);
@@ -386,11 +437,12 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
     full-width Mbmssim mbms = ((sim, SNR) with the channel known, (sim,
     SNR) with the MBSFN RS estimate) and of FullChainSim at the flagship
     load full = (sim, SNR), with the v2 kernel's share of each but dd's;
-    then the device time a call of each (label, fn) of steps; then the
-    device time a TTI of each (label, Oaisim) of frames, a call being one
-    frame of 10 TTIs, with the v2 kernel's share. Returns the uplink's,
-    the first Mbmssim's and the FullChainSim's figures, and those of
-    frames by label."""
+    then the device time a call of each (label, fn) of steps, with the v2
+    kernel's part (and, for the labels in top_events_of, the five largest
+    device events of a call); then the device time a TTI of each (label, Oaisim) of
+    frames, a call being one frame of 10 TTIs, with the v2 kernel's share.
+    Returns the uplink's, the first Mbmssim's and the FullChainSim's
+    figures, those of frames by label and those of steps by label."""
     lib = kernels.load()
     stream = torch.cuda.current_stream().cuda_stream
     items = [(lambda: kernels.check(lib.empty_launch(stream), "empty"),
@@ -452,11 +504,24 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
         figures.append({"step_device_ms": dev_ms,
                         "kernel_device_ms_per_step": v2_ms,
                         "kernel_share": share, "profiled_step_ms": wall})
+    by_step = {}
     for label, fn in steps:
-        dev_ms, _, _, wall = _step_device_time(fn)
+        dev_ms, v2_ms, v2_n, wall = _step_device_time(fn)
         print(f"{label}: {dev_ms:.2f} ms device time a call over "
-              f"{PROFILED_STEPS} profiled calls; {wall:.1f} ms a profiled call"
+              f"{PROFILED_STEPS} profiled calls, the v2 kernel {v2_ms:.3f} ms"
+              f" of it ({v2_n} launches seen); {wall:.1f} ms a profiled call"
               " on the host", flush=True)
+        by_step[label] = {"device_ms": dev_ms, "kernel_device_ms": v2_ms,
+                          "profiled_ms": wall}
+        if label in top_events_of:
+            events, _, _ = profile_steps(fn, PROFILED_STEPS)
+            top = sorted((e for e in events if e.self_device_time_total > 0
+                          and e.device_type ==
+                          torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)[:5]
+            print("  its largest device events a call: " + "; ".join(
+                f"{e.key[:60]} {e.self_device_time_total / PROFILED_STEPS / 1e3:.3f}"
+                f" ms x{e.count // PROFILED_STEPS}" for e in top), flush=True)
     per_tti = {}
     for label, sim in frames:
         dev_ms, v2_ms, v2_n, wall = _step_device_time(
@@ -470,7 +535,7 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
         per_tti[label] = {"tti_device_ms": dev_ms / 10,
                           "kernel_device_ms_per_tti": v2_ms / 10,
                           "kernel_share": share, "profiled_tti_ms": wall / 10}
-    return figures[0], figures[1], figures[3], per_tti
+    return figures[0], figures[1], figures[3], per_tti, by_step
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -2736,6 +2801,587 @@ _EIA2_33401 = [
 ]
 
 
+# ------------------------------------------ capstones, observability, runtime --
+
+# The reference test's configuration (tests/test_capstone.py) and the
+# reference's other ladders; at 100 PRB the JAX package on the CPU gives 53
+# TTIs and these PHY runs for the first.
+CAPSTONE_LADDER = dict(snr_db=12.0, seed=0)
+CAPSTONE_BIG_NAS = dict(snr_db=12.0, seed=3, big_nas_bytes=450,
+                        max_ttis=600)
+CAPSTONE_MT = dict(mt_attach=True, paging_cycle_idx=0, max_ttis=800,
+                   snr_db=12.0)
+CAPSTONE_JAX_100 = dict(ttis=53, phy_runs={"dl": 16, "ul": 6, "prach": 1})
+
+
+def _capstone_timers(sim) -> dict:
+    """Wrap the PHY entry points of a FullStackSim with host timers that
+    stop after a synchronize: the downlink transmit (the clean wave, the
+    UE's noise, the OFDM demodulation) and blind receive, each uplink
+    subframe and each PRACH occasion that sent a preamble. Returns the
+    lists of ms they fill."""
+    ms = {"dl_tx": [], "dl_rx": [], "ul": [], "prach": []}
+
+    def wrap(obj, name, key, keep=lambda: True):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if keep():
+                ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(obj, name, timed)
+
+    wrap(sim.dl, "transmit", "dl_tx")
+    wrap(sim.dl, "receive", "dl_rx")
+    wrap(sim.ul, "run_multi", "ul")
+    sent = [0]
+
+    def preamble_sent():
+        n = sim.phy_runs["prach"]
+        new, sent[0] = n > sent[0], n
+        return new
+    wrap(sim, "_prach_tti", "prach", preamble_sent)
+    return ms
+
+
+def _ms_line(ms: list) -> str:
+    if not ms:
+        return "none"
+    return (f"{np.mean(ms):.2f} ms mean, {np.median(ms):.2f} median, "
+            f"{min(ms):.2f}-{max(ms):.2f} over {len(ms)} "
+            f"[{', '.join(f'{t:.1f}' for t in ms)}]")
+
+
+def _first_at(res: dict, substr: str) -> int:
+    hits = [tti for tti, ev in res["trace"] if substr in ev]
+    if not hits:
+        raise AssertionError(f"capstone: missing trace event {substr!r}")
+    return hits[0]
+
+
+def _check_ladder(res: dict, art: str) -> None:
+    """Every assertion of tests/test_capstone.py::
+    test_full_stack_over_the_air, on a run that wrote its artifacts into
+    art."""
+    for key in ("registered", "mme_registered", "rrc_connected", "echo_ok",
+                "as_secured", "srb_integrity_on"):
+        if not res[key]:
+            raise AssertionError(f"capstone ladder: {key} is false")
+    if res["ue_ip"] == 0 or res["srb_int_failures"] != 0:
+        raise AssertionError(f"capstone ladder: {res}")
+    events = [ev for _, ev in res["trace"]]
+    if not next(i for i, e in enumerate(events)
+                if "SecurityModeCommand" in e) < \
+            next(i for i, e in enumerate(events)
+                 if "AS security activated" in e):
+        raise AssertionError("capstone ladder: SMC after AS activation")
+    runs = res["phy_runs"]
+    if runs["prach"] < 1 or runs["dl"] < 10 or runs["ul"] < 5:
+        raise AssertionError(f"capstone ladder: phy_runs {runs}")
+    # (earlier, strictly earlier?, later), as the reference test orders them
+    for a, strict, b in (
+            ("UE camped", False, "received SI"),
+            ("received SI", True, "sent PRACH"),
+            ("sent PRACH", False, "detected preamble"),
+            ("detected preamble", True, "matched RAR"),
+            ("matched RAR", True, "Msg3 -> C-RNTI"),
+            ("Msg3 -> C-RNTI", False, "won contention resolution"),
+            ("won contention", True, "forwarding initial NAS"),
+            ("forwarding initial NAS", True, "DRB established"),
+            ("DRB established", False, "queued uplink IP packet"),
+            ("queued uplink IP", True, "received IP packet")):
+        ta, tb = _first_at(res, a), _first_at(res, b)
+        if not (ta < tb if strict else ta <= tb):
+            raise AssertionError(f"capstone ladder: {a} at {ta}, {b} at {tb}")
+    recs = read_pcap(os.path.join(art, "capstone.pcap"))
+    kinds = {(k, d) for _, k, d, _, _ in recs}
+    ul_macs = [p for _, k, d, _, p in recs if k == KIND_MAC and d == DIR_UL]
+    if (len(recs) < 10 or (KIND_MAC, DIR_UL) not in kinds
+            or (KIND_MAC, DIR_DL) not in kinds
+            or not any(k == KIND_IP for _, k, _, _, _ in recs)
+            or not any(p[0] & 0x1F == 0 for p in ul_macs)):
+        raise AssertionError(f"capstone ladder: pcap {len(recs)} records, "
+                             f"{kinds}")
+    msc = open(os.path.join(art, "capstone.msc")).read()
+    for label in ("PRACH", "RRCConnectionRequest", "InitialUEMessage",
+                  "DownlinkNASTransport", "GTP-U"):
+        if label not in msc:
+            raise AssertionError(f"capstone ladder: MSC missing {label}")
+
+
+def _capstone_run(cfg: dict, dev, art: str | None = None):
+    """FullStackSim on dev with its PHY timed; (sim, result, timers,
+    seconds, v2 launches by shape)."""
+    sim = FullStackSim(CapstoneConfig(**cfg), artifact_dir=art, device=dev)
+    timers = _capstone_timers(sim)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    return sim, res, timers, time.perf_counter() - t0, launch_shapes()
+
+
+def _only_v2(shapes: dict, what: str) -> None:
+    if not shapes or any(k[0] != "turbo_half_iter" for k in shapes):
+        raise AssertionError(f"{what}: launches {shapes}; v2 must launch "
+                             "and nothing else")
+
+
+def check_small_capstone(dev) -> dict:
+    """Phase 39: FullStackSim at the reference test's size (25 PRB, 12 dB,
+    seed 0; decoder window 240 on both sides) on the CPU and on the card:
+    the result (trace, TTIs, PHY runs, every flag), the pcap bytes and the
+    MSC text equal; v2 launches on the card and nothing else. Returns the
+    v2 launches by shape."""
+    os.makedirs("build", exist_ok=True)
+    cfg = dict(CAPSTONE_LADDER, decoder_window=TURBO_W)
+    out = {}
+    for d in ("cpu", dev):
+        art = f"build/capstone_small_{d}"
+        sim = FullStackSim(CapstoneConfig(**cfg), artifact_dir=art, device=d)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run()
+        res.pop("artifacts")
+        out[d] = (res, open(f"{art}/capstone.pcap", "rb").read(),
+                  open(f"{art}/capstone.msc").read(), launch_shapes(),
+                  time.perf_counter() - t0)
+    (a, pa, ma, _, ta), (b, pb, mb, shapes, tb) = out["cpu"], out[dev]
+    print(f"small capstone 25 PRB: {a['ttis']} TTIs, PHY runs "
+          f"{a['phy_runs']}, {len(a['trace'])} trace events, pcap {len(pa)} "
+          f"bytes, MSC {len(ma)} chars; CPU {ta:.1f} s, card {tb:.1f} s; "
+          f"card v2 launches by shape {shapes}", flush=True)
+    for key in a:
+        if a[key] != b[key]:
+            raise AssertionError(f"small capstone: {key} differs: {a[key]} "
+                                 f"against {b[key]}")
+    if pa != pb or ma != mb:
+        raise AssertionError("small capstone: pcap or MSC differs")
+    _check_ladder(b, f"build/capstone_small_{dev}")
+    _only_v2(shapes, "small capstone")
+    return shapes
+
+
+def capstone_full_width(dev) -> tuple:
+    """Phase 40: FullStackSim at 100 PRB: the reference test's ladder (12
+    dB, seed 0) with every assertion of tests/test_capstone.py::
+    test_full_stack_over_the_air and the JAX run's 53 TTIs and PHY runs;
+    the big-NAS ladder (seed 3, 450 B) and the MT attach through paging,
+    each with its reference test's assertions. The ms of each DL, UL and
+    PRACH PHY TTI and of the ladder's DCI blind decodes and turbo decodes
+    (synced), v2's
+    launches by shape and each run's seconds. Returns
+    (v2 launches by shape over the three runs, the ladder's sim)."""
+    os.makedirs("build", exist_ok=True)
+    art = "build/capstone_100"
+    # the ladder's DCI blind decodes and turbo decodes (DL and UL), timed
+    # (synced) where the receivers call them
+    blind, decode = capstone_mod.dci_blind_decode, DlschCodec.decode
+    dci_ms, dec_ms = [], []
+
+    def synced(fn, into):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    capstone_mod.dci_blind_decode = synced(blind, dci_ms)
+    DlschCodec.decode = synced(decode, dec_ms)
+    try:
+        sim, res, ms, dt, shapes = _capstone_run(
+            dict(CAPSTONE_LADDER, n_rb=100), dev, art)
+    finally:
+        capstone_mod.dci_blind_decode, DlschCodec.decode = blind, decode
+    total = dict(shapes)
+    print(f"capstone 100 PRB ladder: {res['ttis']} TTIs (JAX on the CPU: "
+          f"{CAPSTONE_JAX_100['ttis']}), PHY runs {res['phy_runs']} (JAX: "
+          f"{CAPSTONE_JAX_100['phy_runs']}), {dt:.2f} s; v2 launches by "
+          f"shape {shapes}", flush=True)
+    dl = [a + b for a, b in zip(ms["dl_tx"], ms["dl_rx"])]
+    print(f"  DL PHY TTI (transmit + noise + demod, blind receive): "
+          f"{_ms_line(dl)}; "
+          f"transmit {_ms_line(ms['dl_tx'])}; receive {_ms_line(ms['dl_rx'])}"
+          f"\n  UL PHY TTI: {_ms_line(ms['ul'])}\n  PRACH TTI: "
+          f"{_ms_line(ms['prach'])}\n  DCI blind decodes: {len(dci_ms)} "
+          f"calls, {sum(dci_ms):.1f} ms, {sum(dci_ms) / sum(dl):.1%} of the "
+          f"DL PHY TTIs' {sum(dl):.1f} ms ({_ms_line(dci_ms)})\n  turbo "
+          f"decodes (DL and UL): {len(dec_ms)} calls, {sum(dec_ms):.1f} ms, "
+          f"{sum(dec_ms) / (sum(dl) + sum(ms['ul'])):.1%} of the DL and UL "
+          f"PHY TTIs' ({_ms_line(dec_ms)})", flush=True)
+    _check_ladder(res, art)
+    if res["ttis"] != CAPSTONE_JAX_100["ttis"] or \
+            res["phy_runs"] != CAPSTONE_JAX_100["phy_runs"]:
+        raise AssertionError(f"capstone 100 PRB: {res['ttis']} TTIs, "
+                             f"{res['phy_runs']}")
+    _only_v2(shapes, "capstone 100 PRB")
+
+    big, rb, ms_b, dt, shapes = _capstone_run(
+        dict(CAPSTONE_BIG_NAS, n_rb=100), dev)
+    total = _sum_shapes(total, shapes)
+    tbs = big.dl.codec(big.cfg.ded).cfg.tbs // 8
+    print(f"capstone 100 PRB big NAS (450 B): {rb['ttis']} TTIs, PHY runs "
+          f"{rb['phy_runs']}, reassembled {rb['big_nas_ok']}, dedicated TBS "
+          f"{tbs} B, {dt:.2f} s; UL {_ms_line(ms_b['ul'])}", flush=True)
+    if not (rb["registered"] and rb["echo_ok"] and rb["big_nas_ok"]
+            and tbs < 250):
+        raise AssertionError(f"capstone big NAS: {rb}")
+    _only_v2(shapes, "capstone big NAS")
+
+    mt, rm, ms_m, dt, shapes = _capstone_run(dict(CAPSTONE_MT, n_rb=100),
+                                             dev, "build/capstone_100_mt")
+    total = _sum_shapes(total, shapes)
+    print(f"capstone 100 PRB MT attach: {rm['ttis']} TTIs, PHY runs "
+          f"{rm['phy_runs']}, paged {rm['paged']}, paging occasions "
+          f"monitored {rm['po_monitored']}, {dt:.2f} s", flush=True)
+    if not (rm["paged"] and rm["registered"] and rm["echo_ok"]
+            and 1 <= rm["po_monitored"] <= 3):
+        raise AssertionError(f"capstone MT attach: {rm}")
+    order = ["MME pages", "UE paged (MT)", "sent PRACH"]
+    if not _first_at(rm, order[0]) < _first_at(rm, order[1]) < \
+            _first_at(rm, order[2]):
+        raise AssertionError("capstone MT attach: paging order")
+    t_page = _first_at(rm, "eNB transmits Paging")
+    if not is_paging_occasion(PagingConfig(default_paging_cycle=0,
+                                           paging_nb=2),
+                              ue_paging_id(mt.cfg.imsi), t_page // 10,
+                              t_page % 10):
+        raise AssertionError(f"capstone MT attach: page at {t_page} is not "
+                             "the UE's paging occasion")
+    _only_v2(shapes, "capstone MT attach")
+    print(f"v2 launches by shape over the three 100 PRB runs: {total}",
+          flush=True)
+    return total, sim
+
+
+# The multi-UE tests' configurations (tests/test_capstone_multiue.py) and
+# what the JAX package gives at 100 PRB on the CPU.
+MULTIUE_PF = (dict(n_rb=100, snr_db=18.0, seed=1, max_ttis=900),
+              dict(n_ues=4, scheduler="pf", ue_snr_spread_db=9.0))
+MULTIUE_HO = (dict(n_rb=100, snr_db=15.0, seed=2, max_ttis=700),
+              dict(n_ues=2))
+MULTIUE_JAX_100 = dict(pf_ttis=60, pf_cqis=[10, 11, 13, 15],
+                       pf_mcs=[16, 22], ho_ttis=54, ho_pci=3,
+                       ho_crntis=(17922, 256))
+
+
+def _multiue_run(case, dev, art=None):
+    cfg, mk = case
+    sim = MultiUeSim(CapstoneConfig(**cfg), device=dev, artifact_dir=art,
+                     **mk)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    return sim, res, time.perf_counter() - t0, launch_shapes()
+
+
+def multiue_full_width(dev) -> tuple:
+    """Phase 41: MultiUeSim at 100 PRB: 4 UEs with the PF scheduler on
+    measured CQI and a 9 dB spread (18 dB, seed 1), then 2 UEs (15 dB,
+    seed 2) followed by HandoverPhySim; the gates are the reference tests'
+    assertions, and the counts print beside the JAX run's at 100 PRB; ms
+    a TTI. Returns (v2 launches by shape, the PF sim)."""
+    os.makedirs("build", exist_ok=True)
+    pf, res, dt, shapes = _multiue_run(MULTIUE_PF, dev)
+    total = dict(shapes)
+    cqis = list(res["reported_cqis"].values())
+    mcs = sorted(set().union(*res["dl_mcs_used"].values()))
+    want = MULTIUE_JAX_100
+    print(f"multi-UE PF 4 UEs 100 PRB: {res['ttis']} TTIs (JAX on the CPU: "
+          f"{want['pf_ttis']}), reported CQIs {sorted(cqis)} (JAX: "
+          f"{want['pf_cqis']}), DL grants {res['dl_grants_by_ue']}, MCS used "
+          f"{mcs} (JAX: {want['pf_mcs']}), FDM UL TTIs {res['fdm_ul_ttis']}, "
+          f"collisions {res['collisions']}; {dt:.2f} s, "
+          f"{dt / res['ttis'] * 1e3:.1f} ms a TTI; v2 launches by shape "
+          f"{shapes}", flush=True)
+    if not (all(res["registered"]) and all(res["echo_ok"])):
+        raise AssertionError(f"multi-UE PF: {res}")
+    if len(cqis) != 4 or max(cqis) - min(cqis) < 2:
+        raise AssertionError(f"multi-UE PF: CQIs {cqis}")
+    if len(res["dl_grants_by_ue"]) != 4 or \
+            min(res["dl_grants_by_ue"].values()) < 1:
+        raise AssertionError(f"multi-UE PF: grants {res['dl_grants_by_ue']}")
+    if len(mcs) < 2:
+        raise AssertionError(f"multi-UE PF: MCS used {res['dl_mcs_used']}")
+    _only_v2(shapes, "multi-UE PF")
+
+    art = "build/capstone_multiue_100"
+    two, res, dt, shapes = _multiue_run(MULTIUE_HO, dev, art)
+    total = _sum_shapes(total, shapes)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = HandoverPhySim(two).run()
+    torch.cuda.synchronize()
+    dt_ho = time.perf_counter() - t0
+    total = _sum_shapes(total, launch_shapes())
+    print(f"multi-UE 2 UEs 100 PRB: {res['ttis']} TTIs (JAX: "
+          f"{want['ho_ttis']}), C-RNTIs {res['crntis']}, FDM UL TTIs "
+          f"{res['fdm_ul_ttis']}, {dt:.2f} s ({dt / res['ttis'] * 1e3:.1f} ms"
+          f" a TTI); handover to PCI {out['target_pci']} (JAX: "
+          f"{want['ho_pci']}), C-RNTI {out['source_crnti']} -> "
+          f"{out['target_crnti']} (JAX: {want['ho_crntis'][0]} -> "
+          f"{want['ho_crntis'][1]}), {dt_ho:.2f} s", flush=True)
+    if not (all(res["registered"]) and all(res["echo_ok"])
+            and res["artifacts"]["pcap_records"] > 0):
+        raise AssertionError(f"multi-UE 2 UEs: {res}")
+    evts = out["trace"]
+    if not (out["target_pci"] == 3
+            and out["target_crnti"] != out["source_crnti"]
+            and any("PRACH" in e or "preamble" in e for e in evts)
+            and any("path switched" in e for e in evts)
+            and any("post-handover IP packet" in e for e in evts)):
+        raise AssertionError(f"handover: {out}")
+    _only_v2(total, "multi-UE and handover")
+    print(f"v2 launches by shape over the multi-UE runs: {total}",
+          flush=True)
+    return total, pf
+
+
+def check_kernels_capstone(dev, gen, timings, launched: dict) -> list:
+    """Every (v2, shape) that phases 39-41 launched against its plain
+    version on random inputs of that shape, bit for bit (batch-1 rows of
+    one code block: the common, dedicated, Msg3 and UL grants, and the
+    MCS that PF's CQIs picked). Returns [(kernel, launch key, row)]."""
+    out = []
+    for name, key in sorted(launched, key=str):
+        rows, N, W, U = key
+        row = _hold_v2("capstone", rows, N, W, U, dev, gen, timings)
+        out.append((name, key, row))
+    return out
+
+
+# The flagship (phase 5's configuration) for the observability phase.
+FLAGSHIP_CFG = dict(mcs=26, n_rb=100, channel="EVA", n_rx=1,
+                    n_harq_rounds=1, batch=BATCH, est_mode="joint",
+                    n_turbo_iter=8)
+
+
+def observability_flagship(dev) -> dict:
+    """Phase 42: DlsimFading at the flagship configuration. sweep with
+    profile=True prints the time_meas table with dlsim.tx_encode and
+    dlsim.round0(chan+rx+decode), each counted once a trial; the step time
+    with the profiler on and off, in turns in this call; then trace_dir
+    writes a trace holding the dlsim.step span and turbo_half_iter_kernel
+    device events. Runs after every other path but phase 16's: the trace
+    holds a profiler session."""
+    sim = DlsimFading(DlsimFadingConfig(**FLAGSHIP_CFG), device=dev)
+    profiler.reset_meas()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sim.sweep([24.0], n_frames=4 * BATCH, profile=True)
+    table = buf.getvalue()
+    print(table, end="", flush=True)
+    stats = profiler.get_meas()
+    for name in ("dlsim.tx_encode", "dlsim.round0(chan+rx+decode)"):
+        if name not in table or stats.get(name, (0,))[0] != 4:
+            raise AssertionError(f"profile table: {name} missing or not "
+                                 f"counted 4 times: {stats}")
+    n0 = np.float32(10.0 ** (-2.4))
+    W, ev = sim.wiener(24.0), sim.err_var(24.0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_steps, times = 10, {True: [], False: []}
+    for _ in range(2):
+        for on in (False, True, True, False):
+            profiler.enable(on)
+            sim.step(gen, n0, W, ev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                sim.step(gen, n0, W, ev)
+            torch.cuda.synchronize()
+            times[on].append((time.perf_counter() - t0) / n_steps * 1e3)
+    profiler.enable(True)
+    on, off = np.median(times[True]), np.median(times[False])
+    print(f"flagship step with the profiler on: {on:.2f} ms (median of "
+          f"{len(times[True])} windows of {n_steps}: "
+          f"{', '.join(f'{t:.2f}' for t in times[True])}); off: {off:.2f} ms"
+          f" ({', '.join(f'{t:.2f}' for t in times[False])}); on - off "
+          f"{on - off:+.2f} ms", flush=True)
+    d = "build/trace_flagship"
+    shutil.rmtree(d, ignore_errors=True)
+    sim.sweep([24.0], n_frames=BATCH, verbose=False, trace_dir=d)
+    found = trace_artifacts(d)
+    if len(found) != 1:
+        raise AssertionError(f"trace_dir wrote {found}")
+    events = json.load(open(found[0]))["traceEvents"]
+    # record_function's span on the host, and its mirror on the device's
+    # timeline (category gpu_user_annotation)
+    spans = [e for e in events if e.get("name") == "dlsim.step"
+             and e.get("cat") == "user_annotation"]
+    mirrored = [e for e in events if e.get("name") == "dlsim.step"
+                and e.get("cat") == "gpu_user_annotation"]
+    kernels_seen = [e for e in events
+                    if str(e.get("cat", "")).lower() == "kernel"
+                    and "turbo_half_iter_kernel" in e.get("name", "")]
+    print(f"trace {found[0]}: {os.path.getsize(found[0])} bytes, "
+          f"{len(events)} events, dlsim.step spans {len(spans)} on the host "
+          f"({spans[0]['dur'] / 1e3 if spans else 0:.2f} ms) and "
+          f"{len(mirrored)} on the device's timeline, "
+          f"turbo_half_iter_kernel device events {len(kernels_seen)}",
+          flush=True)
+    if len(spans) != 1 or not kernels_seen:
+        raise AssertionError("the trace lacks the dlsim.step span or the "
+                             "turbo_half_iter_kernel device events")
+    return {"profiler_on_ms": on, "profiler_off_ms": off}
+
+
+def runtime_20mhz(dev) -> dict:
+    """Phase 43: the native runtime at 20 MHz. Ring, ITTI queue and
+    scheduler round trips; a SoftModem fed a 100 PRB framegen frame ten
+    times over (100 subframes of 30,720 samples), paced at 1 ms with 2
+    workers, whose `process` demodulates each subframe's OFDM symbols and
+    correlates it against the PSS replicas on the card: the PSS (NID2 0,
+    at its sample) in subframes 0 and 5 of every frame, each peak over ten
+    times any other subframe's of its frame, every subframe done; missed
+    deadlines and µs a subframe printed, not gated. Then an RrhLoopback
+    round trip of a 100 PRB subframe with AWGN, demodulated on the card:
+    hard decisions exact. The SoftModem runs again with 1 worker, for
+    comparison (not gated)."""
+    from openair4g_tpu_torch.runtime import (MessageQueues, RingBuffer,
+                                             SoftModem, SubframeScheduler)
+    from openair4g_tpu_torch.runtime.fronthaul import RrhLoopback
+    rb = RingBuffer(64)
+    if rb.write(b"a" * 48) != 48 or rb.read(32) != b"a" * 32 or \
+            rb.write(b"b" * 40) != 40 or rb.fill != 56:
+        raise AssertionError("ring buffer round trip")
+    mq = MessageQueues()
+    mq.send(3, 42, b"hello")
+    if mq.recv(3) != (42, b"hello") or mq.recv(5, timeout_s=0.01) is not None:
+        raise AssertionError("ITTI queue round trip")
+    seen = []
+    r = SubframeScheduler(2, 100).run(lambda sf: seen.append(sf) or 0, 50,
+                                      realtime=False)
+    if r["done"] != 50 or sorted(seen) != list(range(50)):
+        raise AssertionError(f"scheduler free run: {r}")
+
+    fp = FrameParms(n_rb=100)
+    spt = fp.samples_per_tti
+    frame = generate_frame(CellConfig(n_rb=100, n_prb=100), device=dev)
+    wave = np.tile(frame, 10)
+    search = CellSearch(fp, capture_len=spt)
+
+    def process(sf, samples):
+        x = torch.as_tensor(np.array(samples), device=dev)[None]
+        rgrid = ofdm_demodulate(x, fp)
+        pos, nid2, _, peak = search.pss_correlate(x)
+        power = rgrid.abs().square().mean()
+        out = torch.stack([peak[0], nid2[0].float(), pos[0].float(), power])
+        return out.cpu().numpy().tolist()
+
+    modem = SoftModem(fp, process, n_workers=2, period_us=1000,
+                      ring_subframes=128)
+    process(0, wave[:spt])                 # first card calls outside it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for sf in range(20):
+        process(sf, wave[sf * spt:(sf + 1) * spt])
+    alone_us = (time.perf_counter() - t0) / 20 * 1e6
+    fed = modem.feed(wave)
+    t0 = time.perf_counter()
+    stats = modem.run(100, realtime=True)
+    dt = time.perf_counter() - t0
+    res = dict(modem.results(100, timeout_s=5.0))
+    print(f"SoftModem 20 MHz, 100 subframes of {spt} samples at 1 ms, 2 "
+          f"workers: fed {fed}, done {stats.done}, results {len(res)}, "
+          f"underruns {stats.underruns}, missed deadlines {stats.missed}, "
+          f"{stats.mean_us:.1f} µs mean and {stats.max_us:.1f} µs max a "
+          f"subframe, {dt * 1e3:.1f} ms for the run; `process` alone in this "
+          f"thread {alone_us:.1f} µs a subframe (mean of 20)", flush=True)
+    if fed != 100 or stats.done != 100 or len(res) != 100 or \
+            stats.underruns:
+        raise AssertionError(f"SoftModem: fed {fed}, {stats}, {len(res)} "
+                             "results")
+    pss_at = (fp.cp0 + fp.n_fft) + 5 * (fp.cp + fp.n_fft) + fp.cp
+    for f in range(10):
+        peaks = [res[10 * f + s][0] for s in range(10)]
+        floor = max(p for s, p in enumerate(peaks) if s not in (0, 5))
+        for s in (0, 5):
+            peak, nid2, pos, _ = res[10 * f + s]
+            if not (peak > 10 * floor and nid2 == 0 and pos == pss_at):
+                raise AssertionError(f"SoftModem frame {f} subframe {s}: "
+                                     f"peak {peak} (floor {floor}), NID2 "
+                                     f"{nid2}, at {pos} (want {pss_at})")
+    one = SoftModem(fp, process, n_workers=1, period_us=1000,
+                    ring_subframes=128)
+    one.feed(wave)
+    st1 = one.run(100, realtime=True)
+    if st1.done != 100 or len(one.results(100, timeout_s=5.0)) != 100:
+        raise AssertionError(f"SoftModem with one worker: {st1}")
+    print(f"  the same with 1 worker: missed deadlines {st1.missed}, "
+          f"{st1.mean_us:.1f} µs mean and {st1.max_us:.1f} µs max a "
+          "subframe", flush=True)
+    print(f"  PSS in subframes 0 and 5 of all 10 frames at sample {pss_at}; "
+          f"peak {res[0][0]:.2f} against at most "
+          f"{max(res[i][0] for i in range(100) if i % 5):.3f} elsewhere",
+          flush=True)
+
+    gm = make_grid_map(100, 1)
+    rng = np.random.default_rng(1)
+    qpsk = ((1 - 2 * rng.integers(0, 2, gm.n_data_re))
+            + 1j * (1 - 2 * rng.integers(0, 2, gm.n_data_re))
+            ).astype(np.complex64) / np.sqrt(2)
+    grid = fill_grid(torch.as_tensor(qpsk[None], device=dev), gm)
+    tx = ofdm_modulate(grid, fp).cpu().numpy()[0]
+    n0 = 1e-4
+    air = np.random.default_rng(2)
+    rrh = RrhLoopback(channel_hook=lambda s: s + (
+        (air.standard_normal(len(s)) + 1j * air.standard_normal(len(s)))
+        * np.sqrt(n0 / 2)).astype(np.complex64))
+    if not rrh.write(spt, tx):
+        raise AssertionError("RrhLoopback refused a write one subframe ahead")
+    rrh.read(spt)
+    ts, rx = rrh.read(spt)
+    y = extract_data_res(ofdm_demodulate(
+        torch.as_tensor(rx[None], device=dev), fp), gm).cpu().numpy()[0]
+    ok = (np.sign(y.real) == np.sign(qpsk.real)).mean(), \
+        (np.sign(y.imag) == np.sign(qpsk.imag)).mean()
+    print(f"RrhLoopback 100 PRB subframe at n0 {n0}: read at {ts}, "
+          f"{len(qpsk)} QPSK REs, hard decisions right {ok[0]:.4f} (I) "
+          f"{ok[1]:.4f} (Q); TX blocks {rrh.stats.tx_blocks}, late "
+          f"{rrh.stats.tx_late}, least lead {rrh.stats.tx_lead_min}",
+          flush=True)
+    if ts != spt or ok != (1.0, 1.0):
+        raise AssertionError(f"RrhLoopback: ts {ts}, decisions {ok}")
+    return {"missed": stats.missed, "mean_us": stats.mean_us,
+            "max_us": stats.max_us, "alone_us": alone_us,
+            "one_worker_missed": st1.missed}
+
+
+def capstone_tti_steps(cap_sim, pf_sim) -> list:
+    """Phase 16's (label, fn) of one 100 PRB capstone DL PHY TTI (the
+    dedicated 1A subframe: transmit, the UE's noise, the blind receive
+    with the SI-RNTI and the C-RNTI searches) and of one multi-UE TTI (the
+    broadcast wave and the four UEs' receivers)."""
+    dl = cap_sim.dl
+    crnti = cap_sim.ue.crnti
+    pdu = bytes(range(64))
+
+    def capstone_dl():
+        rgrid = dl.transmit(2, ("ded", crnti, pdu))
+        return dl.receive(rgrid, 2, [SI_RNTI], crnti)
+
+    def multiue_tti():
+        wave = pf_sim.dl.transmit_clean(2, ("ded", pf_sim.ues[0].crnti, pdu))
+        for i, ue in enumerate(pf_sim.ues):
+            rgrid = pf_sim.dl.ue_demod(wave, pf_sim.ue_rng[i],
+                                       n0=pf_sim.ue_n0[i])
+            pf_sim.dl.receive(rgrid, 2, [SI_RNTI], ue.crnti)
+
+    if capstone_dl()["pdsch"] is None:
+        raise AssertionError("capstone DL TTI lost its PDSCH")
+    return [("capstone 100 PRB DL PHY TTI", capstone_dl),
+            ("multi-UE 100 PRB TTI, 4 UEs", multiue_tti)]
+
+
 def _phase(n: int, title: str, fn, *args):
     """Run one phase, with its number, title and seconds printed."""
     print(f"== phase {n}: {title}", flush=True)
@@ -2840,9 +3486,23 @@ def main() -> None:
     oai_frames = [("oaisim full PHY full width", oai_sim)] + _phase(
         37, "abstraction oaisim full width", oaisim_abstraction_full, dev)
     _phase(38, "oaisim anchors, full stack, AES", oaisim_anchors, dev)
-    ul_dev, mb_dev, full_dev, oai_dev = _phase(
+    cap = {39: _phase(39, "small capstone, card against CPU",
+                      check_small_capstone, dev)}
+    cap[40], cap_sim = _phase(40, "capstone full width", capstone_full_width,
+                              dev)
+    cap[41], pf_sim = _phase(41, "multi-UE capstones and handover full width",
+                             multiue_full_width, dev)
+    held_cap = _phase(41, "v2 at every shape the capstones launched",
+                      check_kernels_capstone, dev, gen, timings,
+                      _sum_shapes(*cap.values()))
+    modem = _phase(43, "the runtime at 20 MHz", runtime_20mhz, dev)
+    obs = _phase(42, "observability on the flagship", observability_flagship,
+                 dev)
+    cap_steps = capstone_tti_steps(cap_sim, pf_sim)
+    ul_dev, mb_dev, full_dev, oai_dev, step_dev = _phase(
         16, "device time of each kernel (run last)", device_times, timings,
-        v1_call, dd_sim, ul_sim, mb_sim, steps_20mhz, full_sim, oai_frames)
+        v1_call, dd_sim, ul_sim, mb_sim, steps_20mhz + cap_steps, full_sim,
+        oai_frames, [label for label, _ in cap_steps])
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
     rows = [
@@ -2925,6 +3585,24 @@ def main() -> None:
         oaisim_abstraction_tti_device_ms={
             label: oai[label]["tti_device_ms"] for label, _ in oai_frames[1:]},
         **turbo_oai, share=turbo_oai["bound_ms"] / turbo_oai["device_ms"]))
+    # The capstone slice's rows: v2 at each shape the capstones launched,
+    # with its launches by phase (39-41), the device time of a 100 PRB
+    # capstone DL PHY TTI and a 4-UE multi-UE TTI, the SoftModem's
+    # deadline count and the flagship step with the profiler on and off.
+    extra = {"capstone_dl_tti_device_ms": step_dev[cap_steps[0][0]][
+                 "device_ms"],
+             "multiue_tti_device_ms": step_dev[cap_steps[1][0]]["device_ms"],
+             "softmodem_missed": modem["missed"],
+             "flagship_step_profiler_on_ms": obs["profiler_on_ms"],
+             "flagship_step_profiler_off_ms": obs["profiler_off_ms"]}
+    for name, key, row in held_cap:
+        by_phase = {n: c[name, key] for n, c in cap.items() if (name, key) in c}
+        rows.append(dict(
+            name=name, route="cuda",
+            source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
+            replaces="openair4g_tpu/ops/turbo_pallas.py:219",
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
+            **extra, **row, share=row["bound_ms"] / row["device_ms"]))
     rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None

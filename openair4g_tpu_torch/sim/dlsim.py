@@ -21,6 +21,7 @@ draws them on the simulator's device from a torch.Generator.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -45,6 +46,7 @@ from ..phy.pdcch import (BITS_PER_CCE, cfi_encode, common_search_candidates,
                          pdcch_scramble_seq, ue_search_candidates)
 from ..phy.pdsch import DlschCodec, DlschConfig
 from ..phy.resource_grid import extract_data_res, fill_grid, make_grid_map
+from ..utils import profiler
 from .channels import (PROFILES, ChannelModel, apply_channel_grid,
                        apply_channel_grid_timevar, apply_channel_time,
                        draw_taps_timevar, fir_freq_response,
@@ -498,14 +500,21 @@ class DlsimFading:
         what ChannelModel.draw_normals gives: [B, n_rx, 1, T, 2], with the
         AoA normals [B] beside it for Rice1/Rice8) and noise_normals[r]
         [B, n_rx, samples_per_tti, 2]; n0 the noise variance; W, ev from
-        wiener/err_var (or convert.estimator_state_from_reference)."""
+        wiener/err_var (or convert.estimator_state_from_reference).
+        Stage times feed utils/profiler under the reference's names
+        (dlsim.c:3266+'s time_meas of every stage)."""
+        t0 = time.perf_counter()
         tb_bits = tb_bits.to(self.device)
         d_flats = self.dlsch.encode_to_d(tb_bits)
+        profiler.stop_meas("dlsim.tx_encode", t0, d_flats)
         rounds, w_soft, taps = [], None, None
         for rnd in range(self.cfg.n_harq_rounds):
+            t0 = time.perf_counter()
             res, taps = self.round(rnd, tb_bits, d_flats, tap_normals[rnd],
                                    noise_normals[rnd], n0, W, ev, w_soft,
                                    taps)
+            profiler.stop_meas(f"dlsim.round{rnd}(chan+rx+decode)", t0,
+                               res.ok)
             rounds.append(res)
             w_soft = res.w_soft
         # a trial reaches round r while no earlier round decoded it
@@ -562,12 +571,20 @@ class DlsimFading:
               early_exit: bool = True, profile: bool = False,
               trace_dir: str | None = None):
         """SNR sweep; rows of (snr, errs [R], trials [R], bler [R]).
-        profile and trace_dir (the reference's stage-time table and
-        Perfetto trace) are not ported yet."""
-        if profile or trace_dir is not None:
-            raise NotImplementedError(
-                "DlsimFading.sweep: profile and trace_dir wait for the "
-                "port of utils/profiler and utils/tracing")
+        profile=True prints the per-stage time_meas table at exit
+        (dlsim.c:3266+ parity); trace_dir records a trace of one
+        representative step (the VCD dumper's equivalent artifact)."""
+        if trace_dir is not None:
+            from ..utils.tracing import annotate, trace
+            snr = float(snrs[0])
+            n0 = np.float32(10.0 ** (-snr / 10.0))
+            W, ev = self.wiener(snr), self.err_var(snr)
+            draws = self.draw(torch.Generator(
+                device=self.device).manual_seed(seed))
+            self.trial(*draws, n0, W, ev)      # first calls outside the trace
+            with trace(trace_dir, self.device):
+                with annotate("dlsim.step"):
+                    self.trial(*draws, n0, W, ev)
         rows = []
         for s in snrs:
             errs, reach = self.run_snr(float(s), n_frames, seed)
@@ -579,4 +596,6 @@ class DlsimFading:
                 print(f"SNR {s:+6.2f} dB: {txt}", flush=True)
             if early_exit and errs[-1] == 0:
                 break
+        if profile:
+            profiler.print_meas()
         return rows

@@ -13,6 +13,9 @@ import torch
 import openair4g_tpu_torch
 from openair4g_tpu_torch.device import (count_launch, launch_counts,
                                         launch_shapes, reset_launch_counts)
+from openair4g_tpu_torch.sim import capstone, capstone_multiue
+from openair4g_tpu_torch.sim.capstone import CapstoneConfig, FullStackSim
+from openair4g_tpu_torch.sim.capstone_multiue import MultiUeSim
 from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
                                            DlsimFading, DlsimFadingConfig)
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
@@ -183,6 +186,58 @@ def test_system_slice_and_fullstack_command_line_run_without_cryptography():
     assert res["mme_registered"] == 4 and res["int_failures"] == 0
 
 
+CAPSTONE_SLICE = ["openair4g_tpu_torch.sim.capstone",
+                  "openair4g_tpu_torch.sim.capstone_multiue",
+                  "openair4g_tpu_torch.utils.profiler",
+                  "openair4g_tpu_torch.utils.tracing",
+                  "openair4g_tpu_torch.runtime",
+                  "openair4g_tpu_torch.runtime.native",
+                  "openair4g_tpu_torch.runtime.softmodem",
+                  "openair4g_tpu_torch.runtime.fronthaul"]
+
+
+def test_capstone_slice_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert set(CAPSTONE_SLICE) <= names
+
+
+def test_capstones_and_runtime_run_with_jax_and_cryptography_blocked():
+    """The capstones, the observability modules and the runtime import
+    with jax, the JAX package and `cryptography` blocked; in that
+    interpreter the ring buffer builds and round-trips, and the capstone's
+    command line climbs the whole ladder at 25 PRB on the CPU."""
+    code = ("import importlib, sys\n"
+            "for m in ('jax', 'openair4g_tpu', 'cryptography'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            f"for name in {CAPSTONE_SLICE!r}:\n"
+            "    importlib.import_module(name)\n"
+            "from openair4g_tpu_torch.runtime import RingBuffer\n"
+            "rb = RingBuffer(64)\n"
+            "assert rb.write(b'x' * 40) == 40 and rb.read(40) == b'x' * 40\n"
+            "from openair4g_tpu_torch.sim.capstone import main\n"
+            "main(['--device', 'cpu'])\n"
+            "leaked = sorted(k for k, v in sys.modules.items() if v is not None\n"
+            "                and k.split('.')[0] in ('jax', 'openair4g_tpu',\n"
+            "                                        'cryptography'))\n"
+            "assert not leaked, leaked\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = json.loads(r.stdout)
+    assert res["registered"] and res["echo_ok"] and res["ttis"] == 53
+
+
+@pytest.mark.parametrize("main", [capstone.main, capstone_multiue.main],
+                         ids=["capstone", "capstone_multiue"])
+def test_capstone_command_lines_need_the_card_by_default(monkeypatch, main):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main([])
+
+
 def test_fullsim_and_framegen_command_lines_run_with_jax_blocked(tmp_path):
     """fullsim_main at one 6 PRB point and framegen, on the CPU, in one
     interpreter with jax and the JAX package blocked."""
@@ -275,11 +330,14 @@ def test_dlsim_command_line_starts_with_jax_blocked():
     (UlGrantSim, UlGrantConfig(n_rb=6, n_prb=4, batch=2)),
     (TddFrameSim, TddsimConfig(batch=2)),
     (Oaisim, OaisimConfig(n_enb=1, n_ue=2, n_rb=6)),
-    (Oaisim, OaisimConfig(n_enb=1, n_ue=2, n_rb=6, mode="phy"))],
+    (Oaisim, OaisimConfig(n_enb=1, n_ue=2, n_rb=6, mode="phy")),
+    (FullStackSim, CapstoneConfig()),
+    (MultiUeSim, CapstoneConfig())],
     ids=["DlsimFading", "DlsimSm", "DlsimTxDiv", "DlsimAwgn", "Ulsim",
          "Pucchsim", "Pdcchsim", "Pbchsim", "Syncsim", "CarrierScan",
          "Prachsim", "Mbmssim", "FullChainSim", "UlGrantSim",
-         "TddFrameSim", "Oaisim abstraction", "Oaisim full PHY"])
+         "TddFrameSim", "Oaisim abstraction", "Oaisim full PHY",
+         "FullStackSim", "MultiUeSim"])
 def test_simulators_run_on_the_card_unless_asked_for_the_cpu(monkeypatch,
                                                              sim_cls, cfg):
     """device=None means the card: without one the simulator raises rather
