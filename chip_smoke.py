@@ -178,6 +178,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      subframes 0 and 5 of every frame (missed deadlines and µs a subframe
      printed, not gated); an RrhLoopback round trip of a 100 PRB subframe
      with AWGN, its hard decisions exact;
+ 44. the parallel modules on the card, each rank a process of its own
+     that loads phase 2's library (run before 42): a. world 1 on NCCL:
+     entry() once, make_flagship_sharded at batch 128, 26 dB, 2
+     iterations (its TB errors those of the same round in this process
+     on the same draws, no DCI miss), the distributed sweep of DlsimAwgn
+     (25 PRB, MCS 4, -3 to -2 dB, 128 frames) at 16 a rank, the
+     time-sharded PSS correlation at n_t = 1; b. world 2 on gloo, both
+     ranks on cuda:0: the flagship at 64 a rank gives a.'s counts, the
+     sweep at 8 a rank gives a.'s rows and the sim's own run_snr at batch
+     16, a sweep preempted after its first point and resumed from its
+     checkpoint gives the unbroken one, the correlation at n_t = 2 (its
+     halo through a host copy: gloo sends CPU tensors only); c. world 4
+     on gloo: the correlation at n_t = 4, on 155,648-sample 20 MHz
+     captures with peaks inside a block, straddling each boundary, at the
+     last position searched and in noise: pos and NID2 equal
+     CellSearch.pss_correlate's on the whole capture; d. every (kernel,
+     shape) the ranks launched that no earlier phase held (v2 at 704 x
+     5,760, mrc_llr at [64, 15,000] Qm 6 and [64, 756] Qm 2, the AWGN
+     sweep's and entry()'s v2 shapes) against its plain version. Each
+     rank's step and collective times are printed, not gated: ranks that
+     share one card measure no scaling;
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
@@ -185,7 +206,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      turbo_half_iter_kernel device events (this holds a profiler
      session, so it runs after every other path);
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17, 23, 28, 33, 35 and 41 timed, by torch.profiler's
+     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44 timed, by torch.profiler's
      device-side events (the kernel alone, without the host's enqueue
      time that CUDA events around back-to-back calls of a few-µs kernel
      measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
@@ -212,8 +233,10 @@ bound; v2 at the full-PHY oaisim shape with phase 36's launches, those a
 TTI, and phases 36's and 37's device time a TTI; v2 at each capstone
 shape with its launches by phase in 39-41, the device time of a capstone
 DL PHY TTI and of a multi-UE TTI, the SoftModem's missed deadlines and
-the flagship step with the profiler on and off), then the device JSON
-line. It needs a CUDA device and imports
+the flagship step with the profiler on and off; each (kernel, shape) of
+phase 44d with the ranks' launches at it, launches_by_phase {44: n}, and
+the ranks' launches at phase 3's flagship shapes added to those rows),
+then the device JSON line. It needs a CUDA device and imports
 nothing of JAX.
 """
 import contextlib
@@ -254,7 +277,8 @@ from openair4g_tpu_torch.phy.pdcch import ue_search_candidates
 from openair4g_tpu_torch.phy.pdsch import DlschCodec
 from openair4g_tpu_torch.phy.resource_grid import (extract_data_res,
                                                    fill_grid, make_grid_map)
-from openair4g_tpu_torch.phy.sync import CellSearch
+from openair4g_tpu_torch.parallel.launch import spawn
+from openair4g_tpu_torch.phy.sync import CellSearch, pss_time_replica
 from openair4g_tpu_torch.rrc.paging import (PagingConfig, is_paging_occasion,
                                             ue_paging_id)
 from openair4g_tpu_torch.phy.srs import SrsConfig
@@ -3356,6 +3380,209 @@ def runtime_20mhz(dev) -> dict:
             "one_worker_missed": st1.missed}
 
 
+# Phase 44: the flagship sharded over ranks, the distributed sweep and the
+# time-sharded PSS correlation, each rank a process of its own on the card.
+PAR_TIMEOUT = 300            # seconds a spawn may take, and each collective
+PAR_AWGN = dict(mcs=4, n_rb=25)            # the distributed command line's
+# Its waterfall on the card: 126/128 errors at -3 dB, none at -2 dB; the
+# sweep stops after the first point without an error.
+PAR_SNRS, PAR_FRAMES = [-3.0, -2.5, -2.0], 128
+# The flagship's (kernel, shape)s held in phase 3.
+PHASE3_KEYS = {("turbo_half_iter", (TURBO_ROWS, TURBO_W * TURBO_NW, TURBO_W,
+                                    TURBO_U)),
+               ("mrc_llr", ((BATCH, N_DATA, 1), 6, False)),
+               ("mrc_llr", ((BATCH, N_PDCCH_RE, 1), 2, True)),
+               ("mrc_llr", ((BATCH, N_DATA, 2), 4, False))}
+
+
+def _pss_captures(fp) -> tuple:
+    """[6, 155,648] 20 MHz captures (Syncsim's 5 ms plus one symbol): a
+    PSS replica inside the first of four blocks, one straddling each
+    boundary of four blocks, one at the last position the search takes,
+    and one in noise. Returns (captures, true positions, NID2s)."""
+    L, n = 5 * fp.samples_per_tti + fp.n_fft, fp.n_fft
+    q = L // 4
+    pos = [5000, q - 100, 2 * q - 1000, 3 * q - 5, L - n - 1, 100000]
+    g = np.random.default_rng(44)
+    r = np.zeros((len(pos), L), np.complex64)
+    r[-1] = (g.normal(size=L) + 1j * g.normal(size=L)) * 0.2
+    for b, p in enumerate(pos):
+        r[b, p:p + n] += pss_time_replica(b % 3, n) * (4 if b == 5 else 1)
+    return r, pos, [b % 3 for b in range(len(pos))]
+
+
+def _ranks(work, world: int, backend: str, jobs: list) -> list:
+    """checks.run_jobs(jobs) in `world` ranks on the card; each job's
+    value must be the same on every rank (times aside). Returns the
+    ranks' spawn results."""
+    out = spawn("openair4g_tpu_torch.parallel.checks:run_jobs", world,
+                backend=backend, workdir=work, kwargs={"jobs": jobs},
+                timeout=PAR_TIMEOUT)
+    for r, res in enumerate(out):
+        lib = res["kernel_library"]     # None: the rank launched no kernel
+        if res["nvcc_ran"] or lib not in (None, kernels.build_info["path"]) \
+                or (res["launch_shapes"] and lib is None):
+            raise AssertionError(f"rank {r} did not load phase 2's library: "
+                                 f"{lib}")
+        for (name, _), a, b in zip(jobs, out[0]["value"], res["value"]):
+            if isinstance(a, dict):
+                a = {k: v for k, v in a.items() if not k.endswith("ms")}
+                b = {k: v for k, v in b.items() if not k.endswith("ms")}
+            np.testing.assert_equal(b, a, err_msg=f"{name}: rank {r} of "
+                                    f"{world} against rank 0")
+    return out
+
+
+def parallel_on_card(dev, gen, timings, held_keys: set) -> dict:
+    """Phase 44: the parallel modules on the card, every rank a process
+    that loads phase 2's library. a. world 1 on NCCL: entry() once, the
+    flagship sharded (batch 128, 26 dB, 2 iterations: the TB errors of
+    the same round in this process on the same draws, no DCI miss), the
+    distributed sweep of DlsimAwgn at 16 a rank and the PSS correlation
+    at n_t = 1; b. world 2 on gloo, both ranks on cuda:0:
+    the flagship at 64 a rank equals a.'s counts, the sweep at 8 a rank
+    equals a.'s rows and the sim's own run_snr at batch 16, a sweep
+    preempted after its first point and resumed from its checkpoint
+    equals the unbroken one, and the PSS correlation at n_t = 2; c. world
+    4 on gloo: the PSS correlation at n_t = 4. Every correlation's pos
+    and NID2 equal CellSearch.pss_correlate on the whole capture. d.
+    every (kernel, shape) the ranks launched that no earlier phase held,
+    against its plain version. Returns {"held": [(kernel, key, row)],
+    "launched": the ranks' launches by (kernel, shape)}."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.cuda.empty_cache()
+    work = os.path.abspath(f"build/parallel/{os.getpid()}")
+    shutil.rmtree(work, ignore_errors=True)
+    fp = FrameParms(n_rb=100)
+    capture, true_pos, true_nid2 = _pss_captures(fp)
+    pos_ref, nid2_ref, _, _ = CellSearch(fp).pss_correlate(
+        torch.as_tensor(capture, device=dev))
+    pos_ref, nid2_ref = pos_ref.tolist(), nid2_ref.tolist()
+    # the noise may move the flat-topped peak by a sample or two
+    if pos_ref[:-1] != true_pos[:-1] or nid2_ref != true_nid2 \
+            or abs(pos_ref[-1] - true_pos[-1]) > 2:
+        raise AssertionError(f"CellSearch: {pos_ref} {nid2_ref}")
+
+    def pss(n_t):
+        return ("pss_correlate", dict(device=dev, n_ue=1, n_t=n_t,
+                                      n_fft=fp.n_fft, capture=capture))
+
+    def flagship(bpd):
+        return ("flagship", dict(device=dev, bpd=bpd, n_turbo_iter=2,
+                                 snr_db=26.0))
+
+    def sweep(bpd, **kw):
+        return ("bler_sweep", dict(device=dev, bpd=bpd, snrs=PAR_SNRS,
+                                   n_frames=PAR_FRAMES, sim=PAR_AWGN, **kw))
+
+    ckpt = os.path.join(work, "sweep.json")
+    chunks = PAR_FRAMES // 16
+    runs = {
+        "a": (1, "nccl", [("entry_point", dict(device=dev)), flagship(128),
+                          sweep(16), pss(1)]),
+        "b": (2, "gloo", [flagship(64), sweep(8),
+                          sweep(8, ckpt_path=ckpt, preempt_after=chunks),
+                          sweep(8, ckpt_path=ckpt), pss(2)]),
+        "c": (4, "gloo", [pss(4)])}
+    got, launched = {}, {}
+    for label, (world, backend, jobs) in runs.items():
+        t0 = time.perf_counter()
+        out = _ranks(os.path.join(work, label), world, backend, jobs)
+        got[label] = out[0]["value"]
+        launched = _sum_shapes(launched, *(r["launch_shapes"] for r in out))
+        print(f"44{label}: world {world} on {backend}, every rank on {dev}:0"
+              f", {time.perf_counter() - t0:.1f} s with the ranks' start "
+              f"(rank seconds {[round(r['seconds'], 1) for r in out]}); "
+              "no rank ran nvcc; each that launched a kernel loaded phase 2's"
+              " library", flush=True)
+        for r, res in enumerate(out):
+            for (name, _), v in zip(jobs, res["value"]):
+                if name in ("flagship", "pss_correlate"):
+                    times = {k: round(x, 3) for k, x in v.items()
+                             if k.endswith("ms")}
+                    print(f"  rank {r} {name}: {times} ({smi}; the ranks "
+                          "share the card, so no rate is claimed)",
+                          flush=True)
+
+    # a. world 1 on NCCL, against the flagship's round 0 in this process
+    # on the same draws (seed 0 at batch 128), with no process group
+    sim = DlsimFading(DlsimFadingConfig(**dict(FLAGSHIP_CFG, n_turbo_iter=2)),
+                      device=dev)
+    tb, taps, noise = sim.draw(torch.Generator(device=dev).manual_seed(0))
+    one, _ = sim.round(0, tb, sim.dlsch.encode_to_d(tb), taps[0], noise[0],
+                       10.0 ** -2.6, sim.wiener(26.0), sim.err_var(26.0))
+    one = (int((~one.ok).sum()), int((~one.dci_ok).sum()), BATCH)
+    ok, bit_errs = got["a"][0]
+    fa, rows_a, pss_a = got["a"][1:]
+    print(f"44a entry(): {ok}/8 TBs, {bit_errs} bit errors; flagship "
+          f"sharded at 128: {fa}; the same round in one process (errs, "
+          f"DCI misses, trials) {one}; sweep rows {rows_a}; PSS n_t = 1 "
+          f"{pss_a['pos'].tolist()} {pss_a['nid2'].tolist()} "
+          f"({pss_a['halo']})", flush=True)
+    if (fa["errs"], fa["dci_miss"], fa["trials"]) != one or one[1] != 0 \
+            or fa["backend"] != "nccl":
+        raise AssertionError(f"44a flagship: {fa}, one process {one}")
+    # b. world 2 on gloo, both ranks on one card
+    fb, rows_b, preempted, resumed, pss_b = got["b"]
+    sim = DlsimAwgn(DlsimConfig(batch=16, **PAR_AWGN), device=dev)
+    rows_1 = []
+    for s in PAR_SNRS:
+        errs, trials = sim.run_snr(s, PAR_FRAMES)
+        rows_1.append((s, errs, trials))
+        if errs == 0:
+            break
+    print(f"44b flagship 2 x 64: {fb}; sweep rows {rows_b}, world 1 "
+          f"{rows_a}, run_snr at batch 16 {rows_1}; preempted after "
+          f"{chunks} chunks -> {preempted}, resumed {resumed}; PSS n_t = 2 "
+          f"({pss_b['halo']})", flush=True)
+    if (fb["errs"], fb["dci_miss"], fb["trials"]) != (
+            fa["errs"], fa["dci_miss"], fa["trials"]) \
+            or fb["backend"] != "gloo":
+        raise AssertionError(f"44b flagship {fb} against 44a {fa}")
+    rows_a, rows_b, resumed = ([tuple(r) for r in x]
+                               for x in (rows_a, rows_b, resumed))
+    if not rows_b == rows_a == rows_1 or preempted is not None \
+            or resumed != rows_b:
+        raise AssertionError(f"44b sweeps: world 2 {rows_b}, world 1 "
+                             f"{rows_a}, run_snr {rows_1}, resumed {resumed}")
+    if pss_b["halo"] != "host copy (gloo send/recv)":
+        raise AssertionError(f"44b halo: {pss_b['halo']}")
+    # c. the time-sharded correlation against CellSearch
+    for n_t, res in ((1, pss_a), (2, pss_b), (4, got["c"][0])):
+        if res["pos"].tolist() != pos_ref or res["nid2"].tolist() != \
+                nid2_ref:
+            raise AssertionError(f"44c n_t = {n_t}: {res}, CellSearch "
+                                 f"{pos_ref} {nid2_ref}")
+        print(f"44c PSS n_t = {n_t} ({res['backend']}, halo: {res['halo']}):"
+              f" pos {res['pos'].tolist()} and NID2 {res['nid2'].tolist()} "
+              "equal CellSearch.pss_correlate on the whole capture; peak "
+              f"{np.round(res['peak'], 3).tolist()}", flush=True)
+    # d. every (kernel, shape) the ranks launched that no phase held
+    print(f"44d the ranks' launches: {launched}", flush=True)
+    held = []
+    for name, key in sorted(launched, key=str):
+        if (name, key) in held_keys:
+            continue
+        label = f"44 ranks x{launched[name, key]}"
+        if name == "mrc_llr":
+            shape, Qm, n0_scalar = key
+            row = _hold_mrc(label, shape[:-1], shape[-1], Qm, n0_scalar, dev,
+                            gen, timings)
+        elif name == "turbo_half_iter":
+            row = _hold_v2(label, *key, dev, gen, timings)
+        else:
+            raise AssertionError(f"{name} {key} launched in the ranks: only "
+                                 "v2 and mrc_llr may be")
+        held.append((name, key, row))
+    for kernel in ("turbo_half_iter", "mrc_llr"):
+        if not any(k == kernel for k, _ in launched):
+            raise AssertionError(f"no rank launched {kernel}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"held": held, "launched": launched}
+
+
 def capstone_tti_steps(cap_sim, pf_sim) -> list:
     """Phase 16's (label, fn) of one 100 PRB capstone DL PHY TTI (the
     dedicated 1A subframe: transmit, the UE's noise, the blind receive
@@ -3496,6 +3723,9 @@ def main() -> None:
                       check_kernels_capstone, dev, gen, timings,
                       _sum_shapes(*cap.values()))
     modem = _phase(43, "the runtime at 20 MHz", runtime_20mhz, dev)
+    par = _phase(44, "parallel on the card", parallel_on_card, dev, gen,
+                 timings, PHASE3_KEYS | {(name, key) for name, key, _ in
+                                         held + held_cap})
     obs = _phase(42, "observability on the flagship", observability_flagship,
                  dev)
     cap_steps = capstone_tti_steps(cap_sim, pf_sim)
@@ -3603,6 +3833,22 @@ def main() -> None:
             replaces="openair4g_tpu/ops/turbo_pallas.py:219",
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
+    # The parallel slice's rows: each (kernel, shape) the ranks of phase 44
+    # launched and it held, with those launches; the ranks' launches at the
+    # flagship shapes of phase 3 go to that phase's rows.
+    for name, key, row in par["held"]:
+        src, tpu = sources[name]
+        n = par["launched"][name, key]
+        rows.append(dict(
+            name=name, route="cuda", source=f"openair4g_tpu_torch/csrc/{src}",
+            replaces=f"openair4g_tpu/ops/{tpu}", launches=n,
+            launches_by_phase={44: n}, **row,
+            share=row["bound_ms"] / row["device_ms"]))
+    for row, kernel in ((rows[0], "turbo_half_iter"), (rows[2], "mrc_llr")):
+        n = sum(v for (name, key), v in par["launched"].items()
+                if name == kernel and (name, key) in PHASE3_KEYS)
+        row["launches"] += n
+        row["launches_by_phase"] = {44: n}
     rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None

@@ -59,6 +59,12 @@ def crc_matrix(K: int, kind: str) -> np.ndarray:
     return H
 
 
+def attach_crc_host(bits: np.ndarray, kind: str) -> np.ndarray:
+    """bits [K] -> bits || crc [K + L], int8."""
+    return np.concatenate([np.asarray(bits, np.int8),
+                           crc_bits_host(bits, kind)])
+
+
 def crc_remainder(bits, H: np.ndarray):
     """bits [..., K] in {0,1} -> remainder [..., L] as float32 {0., 1.}.
     H: a crc_matrix (cached, so it is uploaded once per device)."""

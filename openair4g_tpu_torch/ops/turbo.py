@@ -51,6 +51,52 @@ def qpp_interleaver(K: int) -> np.ndarray:
     return ((f1 * j + f2 * j * j) % K).astype(np.int32)
 
 
+def _rsc_encode_host(bits: np.ndarray):
+    """bits [K] -> (x [K+3], z [K+3]) of one RSC, serially, terminated in
+    state 0 (the host's golden encoder, for tests and config-time
+    vectors)."""
+    K = len(bits)
+    x = np.zeros(K + 3, np.int8)
+    z = np.zeros(K + 3, np.int8)
+    s = 0
+    for k in range(K):
+        u = int(bits[k])
+        r1, r2, r3 = (s >> 2) & 1, (s >> 1) & 1, s & 1
+        a = u ^ r2 ^ r3
+        x[k] = u
+        z[k] = a ^ r1 ^ r3
+        s = a * 4 + r1 * 2 + r2
+    for k in range(K, K + 3):  # termination: force a=0 => u = r2^r3
+        r1, r2, r3 = (s >> 2) & 1, (s >> 1) & 1, s & 1
+        u = r2 ^ r3
+        x[k] = u
+        z[k] = 0 ^ r1 ^ r3      # a = 0
+        s = r1 * 2 + r2         # a*4 = 0
+    assert s == 0, "trellis must terminate in state 0"
+    return x, z
+
+
+def turbo_encode_host(bits: np.ndarray) -> np.ndarray:
+    """bits [K] {0,1} -> d [3, K+4] streams per 36.212 §5.1.3.2.2.
+
+    Filler handling is the caller's job (fillers are encoded as zeros and
+    the rate matcher marks their d0/d1 positions <NULL>).
+    """
+    K = len(bits)
+    pi = qpp_interleaver(K)
+    x1, z1 = _rsc_encode_host(bits)
+    x2, z2 = _rsc_encode_host(np.asarray(bits)[pi])
+    d = np.zeros((3, K + 4), np.int8)
+    d[0, :K] = x1[:K]
+    d[1, :K] = z1[:K]
+    d[2, :K] = z2[:K]
+    # Tail interlacing per 36.212 (d_K..d_{K+3} columns):
+    d[0, K:] = [x1[K], z1[K + 1], x2[K], z2[K + 1]]
+    d[1, K:] = [z1[K], x1[K + 2], z2[K], x2[K + 2]]
+    d[2, K:] = [x1[K + 1], z1[K + 2], x2[K + 1], z2[K + 2]]
+    return d
+
+
 # h[d] = 1 for d >= 1 iff d mod 7 in {1,2,3,6}; h[0] = 1.
 _H_SHIFTS = (1, 2, 3, 6)
 # bit b of the state after d steps is 1 iff d mod 7 in _STATE_RES[b]

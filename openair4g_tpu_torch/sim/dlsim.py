@@ -133,15 +133,20 @@ class DlsimAwgn:
         return RoundResult(ok, dci_ok, (tb_hat != tb_bits).sum(dim=1),
                            w_soft)
 
-    def step(self, generator: torch.Generator, n0) -> RoundResult:
-        """[batch] trials drawn on the simulator's device from
-        `generator` (a generator of that device)."""
+    def draw(self, generator: torch.Generator):
+        """One step's draws for `trial`, on the simulator's device: the TB
+        bits, then the noise normals."""
         B, dev = self.cfg.batch, self.device
         tb = torch.randint(0, 2, (B, self.dlsch.cfg.tbs), generator=generator,
                            device=dev, dtype=torch.int32)
         noise = torch.randn(B, self.fp.samples_per_tti, 2,
                             generator=generator, device=dev)
-        return self.trial(tb, noise, n0)
+        return tb, noise
+
+    def step(self, generator: torch.Generator, n0) -> RoundResult:
+        """[batch] trials drawn on the simulator's device from
+        `generator` (a generator of that device)."""
+        return self.trial(*self.draw(generator), n0)
 
     def run_snr(self, snr_db: float, n_frames: int, seed: int = 0):
         """Round-0 block errors at one SNR over ceil(n_frames / batch)

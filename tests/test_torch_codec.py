@@ -133,6 +133,32 @@ def test_turbo_encode_matches_reference(K):
         turbo.turbo_encode_device(t(bits), pi).numpy(), want)
 
 
+@pytest.mark.parametrize("K", [40, 1824, 6144])
+def test_turbo_encode_host_matches_reference(K):
+    """The host's golden encoder equals the JAX package's and the port's
+    device encoder."""
+    bits = np.random.default_rng(7 + K).integers(0, 2, K).astype(np.int8)
+    got = turbo.turbo_encode_host(bits)
+    np.testing.assert_array_equal(got, jturbo.turbo_encode_host(bits))
+    for a, b in zip(turbo._rsc_encode_host(bits),
+                    jturbo._rsc_encode_host(bits)):
+        np.testing.assert_array_equal(a, b)
+    dev = turbo.turbo_encode_device(t(bits[None].astype(np.int32)),
+                                    turbo.qpp_interleaver(K))
+    np.testing.assert_array_equal(dev.numpy()[0], got)
+
+
+@pytest.mark.parametrize("K,kind", [(16, "crc16"), (1800, "crc24a"),
+                                    (6120, "crc24b")])
+def test_attach_crc_host_matches_reference(K, kind):
+    bits = np.random.default_rng(K).integers(0, 2, K)
+    got = crc.attach_crc_host(bits, kind)
+    want = jcrc.attach_crc_host(bits, kind)
+    assert got.dtype == want.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    assert crc.crc_ok_device(t(got[None]), kind).all()
+
+
 def _noisy_llrs(d, sigma, rng):
     y = (1.0 - 2.0 * d) + sigma * rng.standard_normal(d.shape)
     return (2.0 * y / sigma ** 2).astype(np.float32)

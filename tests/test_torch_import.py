@@ -360,3 +360,36 @@ def test_launches_are_counted_by_kernel_and_by_shape():
                                ("turbo_half_iter", (64, 3840, 240, 24)): 1}
     reset_launch_counts()
     assert launch_shapes() == {} and not any(launch_counts().values())
+
+
+PARALLEL_SLICE = ["openair4g_tpu_torch.parallel",
+                  "openair4g_tpu_torch.parallel.mesh",
+                  "openair4g_tpu_torch.parallel.sweep",
+                  "openair4g_tpu_torch.parallel.timeshard",
+                  "openair4g_tpu_torch.parallel.distributed",
+                  "openair4g_tpu_torch.parallel.launch",
+                  "openair4g_tpu_torch.parallel.checks",
+                  "openair4g_tpu_torch.utils.rng",
+                  "openair4g_tpu_torch.graft_entry"]
+
+
+def test_parallel_slice_modules_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert set(PARALLEL_SLICE) <= names
+
+
+def test_distributed_command_line_starts_with_jax_blocked():
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['openair4g_tpu'] = None\n"
+            "sys.argv = ['distributed', '--help']\n"
+            "runpy.run_module('openair4g_tpu_torch.parallel.distributed',\n"
+            "                 run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    for flag in ("--coordinator", "--nprocs", "--proc-id", "--ckpt",
+                 "--batch-per-device", "--device", "--backend"):
+        assert flag in r.stdout
+    assert "--host-devices have no" in " ".join(r.stdout.split())
