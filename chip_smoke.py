@@ -199,6 +199,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      sweep's and entry()'s v2 shapes) against its plain version. Each
      rank's step and collective times are printed, not gated: ranks that
      share one card measure no scaling;
+ 45. the port bench (run before 42): openair4g_tpu_torch.bench's four
+     cells at bench.py's sizes and window counts (the flagship round 0,
+     DlsimAwgn 25 PRB MCS 4 at batch 512, the turbo decode of MCS 10 on
+     50 PRB at batch 512 with dynamic_stop off and on, the 20 MHz front
+     end), each between launch-count resets: its rates (best and median
+     window) printed as the bench prints them; the fixed-8 decode
+     launches v2 2 x 8 times a call, the dynamic stop fewer, the front end
+     none; v2 at the turbo cell's 1,024 x 4,080 bit for bit, mrc_llr at
+     the flagship cell's shapes within rtol = atol = 3e-4, every other
+     (kernel, shape) the cells launched against its plain version;
+ 46. the campaign programs (openair4g_tpu_torch.scripts) through their
+     command lines into a temporary --out-dir at 1,024 trials (256 for
+     the fading corpus, the Doppler sweep and the EVA ablation): the
+     AWGN ladder's MCS 10 at 2.9-3.1 dB, fidelity txdiv64 at 13 and 14
+     dB and ulsim16 at 3 dB, the uplink ladder's awgn10 at 2.75 dB and
+     prach_roc fmt0_ncs13 at threshold 14, each count within Z_BAND = 4
+     pooled two-proportion sd of the committed run's (taken on a TPU);
+     the turbo roofline at K = 6,144, batch 512; the flagship's stage
+     split and A/B profile; the sharded flagship in 1, 2 and 4 ranks
+     (their launches are the ranks', not counted here); every output
+     with the committed file's keys (turbo_roofline's less its TPU
+     units) and CSV header plus device and seconds; a second run of each
+     program skips every configuration; then every (kernel, shape) they
+     launched against its plain version;
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
@@ -206,7 +230,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      turbo_half_iter_kernel device events (this holds a profiler
      session, so it runs after every other path);
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44 timed, by torch.profiler's
+     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44-46 timed, by torch.profiler's
      device-side events (the kernel alone, without the host's enqueue
      time that CUDA events around back-to-back calls of a few-µs kernel
      measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
@@ -216,7 +240,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      24's and 29's paths, with the v2 kernel's share of the uplink, MBSFN
      and full-chain steps', of a call of each phase 26 path, and of a TTI
      of phase 36's and 37's Oaisims, with v2's share of the first, and of
-     one 100 PRB capstone DL PHY TTI and one 4-UE multi-UE TTI. It runs
+     one 100 PRB capstone DL PHY TTI and one 4-UE multi-UE TTI, and of a
+     step of each bench cell (a decode of each turbo mode). It runs
      last: the profiler is started after every path has run, so no path
      is timed in a process that has held a profiling session.
 Each path is driven with the launch counts set to 0 just before it and
@@ -234,8 +259,10 @@ TTI, and phases 36's and 37's device time a TTI; v2 at each capstone
 shape with its launches by phase in 39-41, the device time of a capstone
 DL PHY TTI and of a multi-UE TTI, the SoftModem's missed deadlines and
 the flagship step with the profiler on and off; each (kernel, shape) of
-phase 44d with the ranks' launches at it, launches_by_phase {44: n}, and
-the ranks' launches at phase 3's flagship shapes added to those rows),
+phases 44d, 45 and 46 with the launches at it there, launches_by_phase
+{phase: n}, and their launches at phase 3's flagship shapes added to those
+rows; v2 at the bench's turbo shape with its launches a decode of each
+mode and each decode's device time),
 then the device JSON line. It needs a CUDA device and imports
 nothing of JAX.
 """
@@ -255,15 +282,17 @@ import time
 import numpy as np
 import torch
 
-from openair4g_tpu_torch import kernels
+from openair4g_tpu_torch import bench, kernels
 from openair4g_tpu_torch.config import FrameParms
-from openair4g_tpu_torch.device import (launch_counts, launch_shapes,
+from openair4g_tpu_torch.device import (FP32_OPS_S, HBM_BYTES_S,
+                                        launch_counts, launch_shapes,
                                         reset_launch_counts)
 from openair4g_tpu_torch.epc import crypto
 from openair4g_tpu_torch.ops.equalize_llr import (demap_llr_fused,
                                                   demap_llr_fused_ref,
                                                   mrc_llr, mrc_llr_ref)
-from openair4g_tpu_torch.ops.turbo_cuda import (half_iteration,
+from openair4g_tpu_torch.ops.turbo_cuda import (TURBO_OPS_PER_POS,
+                                                half_iteration,
                                                 half_iteration_prepped,
                                                 half_iteration_prepped_ref,
                                                 half_iteration_ref,
@@ -295,6 +324,13 @@ from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
 from openair4g_tpu_torch.sim.framegen import generate_frame
 from openair4g_tpu_torch.sim.fullsim import FullChainSim, FullsimConfig
 from openair4g_tpu_torch.sim.harness import dlsim_main, fullsim_main
+from openair4g_tpu_torch.scripts import (awgn_campaign, doppler_campaign,
+                                         eva_ablation, fading_campaign,
+                                         fidelity_campaign, flagship_profile,
+                                         flagship_stages, prach_roc,
+                                         scale_campaign, turbo_roofline,
+                                         ulsim_campaign)
+from openair4g_tpu_torch.scripts.common import two_proportion_z
 from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 from openair4g_tpu_torch.sim.oaisim import (Oaisim, OaisimConfig,
@@ -330,11 +366,6 @@ TURBO_ATOL = 0.0
 # (num/h2 - l)^2 / (n0/h2): same value, other rounding (as the reference's
 # tests/test_equalize_llr.py tolerates).
 MRC_RTOL = MRC_ATOL = 3e-4
-# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bytes/s, and float32 operations/s outside the tensor cores. The data
-# sheet's 67 TFLOP/s counts an FMA as two; the kernels' add, sub, max and
-# mul issue one a lane a cycle, so an operation counts at half that rate.
-HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12 / 2
 # The v2 scratch's limit at the flagship: one beta checkpoint per block
 # takes 32.4 MB; a per-node beta stack would take 260 MB.
 TURBO_SCRATCH_MAX = 40e6
@@ -568,12 +599,6 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / FP32_OPS_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-# Float32 operations a trellis position of one half-iteration takes: beta
-# step 40, alpha step 32, LLR 51 (8 states), renormalizations and the two
-# 0.5 scalings 5.
-TURBO_OPS_PER_POS = 128
 
 
 def check_turbo(dev, gen, timings) -> dict:
@@ -3388,6 +3413,11 @@ PAR_AWGN = dict(mcs=4, n_rb=25)            # the distributed command line's
 # sweep stops after the first point without an error.
 PAR_SNRS, PAR_FRAMES = [-3.0, -2.5, -2.0], 128
 # The flagship's (kernel, shape)s held in phase 3.
+# The v2 rows of phases 17, 23 and 35, in the kernels line's order.
+EARLIER_V2_KEYS = [("turbo_half_iter", (rows, n, TURBO_W, TURBO_U))
+                   for rows, n in ((UL_TURBO_ROWS, TURBO_W * TURBO_NW),
+                                   (MBMS_TURBO_ROWS, MBMS_TURBO_N),
+                                   (OAISIM_ROWS, OAISIM_N))]
 PHASE3_KEYS = {("turbo_half_iter", (TURBO_ROWS, TURBO_W * TURBO_NW, TURBO_W,
                                     TURBO_U)),
                ("mrc_llr", ((BATCH, N_DATA, 1), 6, False)),
@@ -3561,26 +3591,328 @@ def parallel_on_card(dev, gen, timings, held_keys: set) -> dict:
               f"{np.round(res['peak'], 3).tolist()}", flush=True)
     # d. every (kernel, shape) the ranks launched that no phase held
     print(f"44d the ranks' launches: {launched}", flush=True)
-    held = []
-    for name, key in sorted(launched, key=str):
-        if (name, key) in held_keys:
-            continue
-        label = f"44 ranks x{launched[name, key]}"
-        if name == "mrc_llr":
-            shape, Qm, n0_scalar = key
-            row = _hold_mrc(label, shape[:-1], shape[-1], Qm, n0_scalar, dev,
-                            gen, timings)
-        elif name == "turbo_half_iter":
-            row = _hold_v2(label, *key, dev, gen, timings)
-        else:
-            raise AssertionError(f"{name} {key} launched in the ranks: only "
-                                 "v2 and mrc_llr may be")
-        held.append((name, key, row))
+    held = _hold_each(launched, held_keys, "44 ranks", dev, gen, timings)
     for kernel in ("turbo_half_iter", "mrc_llr"):
         if not any(k == kernel for k, _ in launched):
             raise AssertionError(f"no rank launched {kernel}")
     shutil.rmtree(work, ignore_errors=True)
     return {"held": held, "launched": launched}
+
+
+def _hold_demap(label: str, lead: tuple, Qm: int, n0_scalar: bool, dev, gen,
+                timings) -> dict:
+    """demap_llr at x [*lead] (n0 a number, or per RE) against its plain
+    version within MRC_RTOL/ATOL; its time by CUDA events, queued for
+    phase 16's device time. Returns the kernels-line row."""
+    x = torch.view_as_complex(torch.randn(*lead, 2, generator=gen,
+                                          device=dev)) * 0.7
+    n0 = 0.05 if n0_scalar else \
+        0.01 + torch.rand(*lead, generator=gen, device=dev)
+    got, want = demap_llr_fused(x, n0, Qm), demap_llr_fused_ref(x, n0, Qm)
+    torch.cuda.synchronize()
+    err, ratio = _worst_ratio(got, want, MRC_RTOL, MRC_ATOL)
+    kernel = functools.partial(demap_llr_fused, x, n0, Qm)
+    ms = _time_ms(kernel, 50)
+    plain = _time_ms(lambda: demap_llr_fused_ref(x, n0, Qm), 5)
+    n_re = int(np.prod(lead))
+    bound = _bound((8 + 4 * Qm + (0 if n0_scalar else 4)) * n_re,
+                   10 * Qm * n_re)
+    kind = "n0 scalar" if n0_scalar else "n0 per RE"
+    print(f"demap_llr {label} Qm={Qm} {list(lead)} {kind}: max|diff| "
+          f"{err:.3g}, max |diff|/(atol+rtol|ref|) {ratio:.3g} (must be "
+          f"<= 1); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})", flush=True)
+    if not ratio <= 1.0:
+        raise AssertionError(f"demap_llr {label} disagrees: {ratio}")
+    row = {"shape": f"{label} {list(lead)} Qm={Qm} {kind}",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain, **bound}
+    timings.append((f"demap_llr {label} Qm={Qm} REs={n_re}", kernel,
+                    f"demap_llr_kernel<{Qm}>", row))
+    return row
+
+
+def _hold_each(launched: dict, held_keys: set, label: str, dev, gen,
+               timings) -> list:
+    """Every (kernel, launch key) of launched that no earlier phase held,
+    against its plain version (v2 bit for bit, mrc_llr and demap_llr
+    within rtol = atol = 3e-4), labelled with label and its launches.
+    Returns [(kernel, key, row)]."""
+    out = []
+    for name, key in sorted(launched, key=str):
+        if (name, key) in held_keys:
+            continue
+        what = f"{label} x{launched[name, key]}"
+        if name == "mrc_llr":
+            shape, Qm, n0_scalar = key
+            row = _hold_mrc(what, shape[:-1], shape[-1], Qm, n0_scalar, dev,
+                            gen, timings)
+        elif name == "demap_llr":
+            row = _hold_demap(what, *key, dev, gen, timings)
+        elif name == "turbo_half_iter":
+            row = _hold_v2(what, *key, dev, gen, timings)
+        else:
+            raise AssertionError(f"{name} {key} launched in {label}")
+        out.append((name, key, row))
+        held_keys.add((name, key))
+    return out
+
+
+# The bench's turbo cell: MCS 10 on 50 PRB, TBS 7,992 in 2 blocks of K =
+# 4,032, so 512 TBs decode as 1,024 rows of N = 4,080 (17 windows of
+# W = 240), the trellis' K + 3 positions padded from 4,035 on.
+BENCH_TURBO = (1024, 4080, TURBO_W, TURBO_U)
+BENCH_TURBO_PAD = 4032 + 3
+
+
+def port_bench(dev, gen, timings, held_keys: set) -> dict:
+    """Phase 45: the four cells of openair4g_tpu_torch.bench at bench.py's
+    sizes and window counts, each with the launch counts set to 0 just
+    before it and read just after. The flagship's first step decodes a
+    TB; the turbo cell's fixed_8iter decode launches v2 2 x 8 times a
+    call at BENCH_TURBO only and its dynamic stop fewer; the front end
+    launches no kernel. Then v2 at BENCH_TURBO bit for bit, mrc_llr at
+    the flagship cell's shapes within rtol = atol = 3e-4, and every other
+    (kernel, shape) the cells launched that no phase held. Returns the
+    cells' rows, their steps for phase 16 (label, fn), the launches by
+    (kernel, shape) and the held rows."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    cells, steps, launched = {}, [], {}
+    for cell in bench.CELLS:
+        reset_launch_counts()
+        row, cell_steps = cell(dev)
+        torch.cuda.synchronize()
+        shapes = launch_shapes()
+        launched[cell.__name__] = shapes
+        row["card"] = smi
+        cells[cell.__name__] = row
+        print(f"bench {json.dumps(row)}", flush=True)
+        steps += [(f"bench {cell.__name__} {label}", fn)
+                  for label, fn in cell_steps.items()]
+    per_call = cells["turbo"]["launches"]
+    if per_call["fixed_8iter"] != {"turbo_half_iter": 16.0}:
+        raise AssertionError(f"fixed_8iter decode launches {per_call}")
+    if not 0 < per_call["earlystop_operating"].get(
+            "turbo_half_iter", 0) < 16:
+        raise AssertionError(f"earlystop_operating decode launches "
+                             f"{per_call}")
+    if set(launched["turbo"]) != {("turbo_half_iter", BENCH_TURBO)}:
+        raise AssertionError(f"turbo cell launched {launched['turbo']}")
+    kernels_of = {c: {name for name, _ in s} for c, s in launched.items()}
+    if kernels_of["flagship"] != {"turbo_half_iter", "mrc_llr"} or \
+            kernels_of["awgn"] != {"turbo_half_iter"} or \
+            kernels_of["front_end"]:
+        raise AssertionError(f"the cells launched {kernels_of}")
+    for name, value in (("flagship", cells["flagship"]["value"]),
+                        ("awgn", cells["awgn"]["value"]),
+                        ("front_end", cells["front_end"]["value"]),
+                        *cells["turbo"]["value"].items()):
+        if not (np.isfinite(value) and value > 0):
+            raise AssertionError(f"bench {name}: rate {value}")
+    print(json.dumps(bench.last_line(list(cells.values()))), flush=True)
+
+    turbo_row = _hold_v2("bench turbo cell", *BENCH_TURBO, dev, gen,
+                         timings, pad_from=BENCH_TURBO_PAD)
+    held_keys.add(("turbo_half_iter", BENCH_TURBO))
+    for name, key in sorted(launched["flagship"], key=str):
+        if name == "mrc_llr":      # held in phase 3 too; timed there
+            shape, Qm, n0_scalar = key
+            _hold_mrc("bench flagship", shape[:-1], shape[-1], Qm,
+                      n0_scalar, dev, gen, [])
+    total = _sum_shapes(*launched.values())
+    return {"cells": cells, "steps": steps, "launched": total,
+            "turbo_row": turbo_row,
+            "held": _hold_each(total, held_keys, "45 bench", dev, gen,
+                               timings)}
+
+
+# Phase 46's band: a count of the port's against the TPU run's count at
+# the same point, as |p1 - p2| over the pooled two-proportion standard
+# deviation. Fixed before the first run on the card.
+Z_BAND = 4.0
+CAMPAIGN_TRIALS = 1024
+# Keys of the committed turbo_roofline.json that name TPU units and have
+# no counterpart on the card (the port's: bytes/ops ceilings, the plain
+# half-iteration).
+ROOFLINE_TPU_KEYS = {"vpu_ceiling_gbps", "mxu_ceiling_gbps",
+                     "half_iteration_xla_ms"}
+
+
+def _csv_counts(path: str, snr: float) -> tuple:
+    """(err0, trials0) of the committed CSV's row at snr."""
+    with open(path) as f:
+        for line in f.read().splitlines()[1:]:
+            cols = line.split(";")
+            if abs(float(cols[0]) - snr) < 1e-6:
+                return int(cols[4]), int(cols[5])
+    raise AssertionError(f"{path}: no row at {snr} dB")
+
+
+def _header(path: str) -> str:
+    with open(path) as f:
+        return f.readline().rstrip("\n")
+
+
+def _in_band(what: str, k1: int, n1: int, k2: int, n2: int) -> None:
+    z = two_proportion_z(k1, n1, k2, n2)
+    print(f"46 {what}: {k1}/{n1} = {k1 / n1:.4f} on the card, {k2}/{n2} = "
+          f"{k2 / n2:.4f} in the committed run (taken on a TPU): "
+          f"{z:.2f} sd (band {Z_BAND})", flush=True)
+    if not z <= Z_BAND:
+        raise AssertionError(f"46 {what}: {z:.2f} sd outside the band")
+
+
+def _keys_hold(what: str, committed: dict, ours: dict,
+               skip: set = frozenset()) -> None:
+    missing = set(committed) - set(ours) - skip
+    if missing or not {"device", "seconds"} <= set(ours):
+        raise AssertionError(f"46 {what}: keys {sorted(missing)} missing, "
+                             f"or device/seconds: {sorted(ours)}")
+
+
+def campaigns(dev, gen, timings, held_keys: set) -> dict:
+    """Phase 46: each ported campaign program end to end through its
+    command line (main(argv)) into a temporary --out-dir, at reduced
+    trials; the counts where the committed TPU run has them within Z_BAND
+    of those; every output with the committed file's keys (and CSV
+    header) plus device and seconds; a second run of each skips every
+    configuration (resume). Then every (kernel, shape) they launched that
+    no phase held. Returns the launches by (kernel, shape) and the held
+    rows."""
+    out = os.path.abspath(f"build/campaigns/{os.getpid()}")
+    shutil.rmtree(out, ignore_errors=True)
+    n = str(CAMPAIGN_TRIALS)
+    runs = [
+        ("awgn_campaign", awgn_campaign, [n, "10", "--snr-range",
+                                          "2.9:3.1"], ["mcs10"]),
+        ("fidelity_campaign", fidelity_campaign,
+         [n, f"{out}/fidelity/txdiv64.agg.json", "txdiv64", "--snrs",
+          "13,14"], ["txdiv64"]),
+        ("fidelity_campaign", fidelity_campaign,
+         [n, f"{out}/fidelity/ulsim16.agg.json", "ulsim16", "--snrs", "3.0"],
+         ["ulsim16"]),
+        ("ulsim_campaign", ulsim_campaign,
+         [n, "awgn10", "--snr-range", "2.75:2.75"], ["awgn10"]),
+        ("prach_roc", prach_roc, ["4", f"{out}/prach/agg.json",
+                                  "fmt0_ncs13"], ["fmt0_ncs13"]),
+        ("fading_campaign", fading_campaign, ["256"],
+         [name for name, *_ in fading_campaign.CORPUS]),
+        ("doppler_campaign", doppler_campaign, ["256"],
+         ["doppler_campaign"]),
+        ("eva_ablation", eva_ablation, ["256"],
+         [name for name, *_ in eva_ablation.CASES]),
+        ("turbo_roofline", turbo_roofline, ["6144", "512", "8"],
+         ["turbo_roofline"]),
+        ("flagship_stages", flagship_stages, [], ["flagship_stages"]),
+        ("flagship_profile", flagship_profile, [], ["flagship_profile"]),
+        ("scale_campaign", scale_campaign, [], ["scale_campaign"]),
+    ]
+    dirs = {"fidelity_campaign": "fidelity", "prach_roc": "prach"}
+    got = {}
+    reset_launch_counts()
+    for prog, mod, argv, names in runs:
+        t0 = time.perf_counter()
+        res = mod.main(argv + ["--out-dir",
+                               f"{out}/{dirs.get(prog, prog)}"])
+        got.setdefault(prog, {}).update({prog: res} if names == [prog]
+                                        else res)
+        print(f"46 {prog} {' '.join(argv)}: {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+    torch.cuda.synchronize()
+    launched = launch_shapes()
+    print(f"46 launches: {launch_counts()}", flush=True)
+    for kernel in ("turbo_half_iter", "mrc_llr", "demap_llr"):
+        if not any(k == kernel for k, _ in launched):
+            raise AssertionError(f"no campaign launched {kernel}")
+
+    # the counts against the committed TPU runs
+    for snr in (2.9, 3.0, 3.1):
+        _in_band(f"awgn mcs10 {snr} dB",
+                 *_csv_counts(f"{out}/awgn_campaign/mcs10.csv", snr),
+                 *_csv_counts("awgn_results/mcs10.csv", snr))
+    committed = {name: json.load(open(f"{name}.json")) for name in (
+        "awgn_campaign", "fidelity_campaign", "ulsim_campaign", "prach_roc",
+        "fading_campaign", "doppler_campaign", "eva_ablation",
+        "turbo_roofline", "scale_campaign")}
+    for config, snrs in (("txdiv64", (13.0, 14.0)), ("ulsim16", (3.0,))):
+        ours = {r[0]: r for r in got["fidelity_campaign"][config]["rows"]}
+        ref = {r[0]: r for r in committed["fidelity_campaign"][config][
+            "rows"]}
+        for snr in snrs:
+            _in_band(f"fidelity {config} {snr} dB", ours[snr][1],
+                     ours[snr][2], ref[snr][1], ref[snr][2])
+    _in_band("ulsim awgn10 2.75 dB",
+             *_csv_counts(f"{out}/ulsim_campaign/awgn10.csv", 2.75),
+             *_csv_counts("ulsim_results/awgn10.csv", 2.75))
+    ours = got["prach_roc"]["fmt0_ncs13"]
+    ref = committed["prach_roc"]["fmt0_ncs13"]
+    r1 = next(r for r in ours["rows"] if r["threshold"] == 14.0)
+    r2 = ref["operating_point"]
+    if r2["threshold"] != 14.0:
+        raise AssertionError(f"prach_roc.json's operating point {r2}")
+    for what in ("det_rate", "fa_per_occasion"):
+        _in_band(f"prach fmt0_ncs13 threshold 14 {what}",
+                 round(r1[what] * ours["occasions"]), ours["occasions"],
+                 round(r2[what] * ref["occasions"]), ref["occasions"])
+    for name, *_ in fading_campaign.CORPUS:
+        counts = [(d[name]["errs"][0], d[name]["reached"][0]) for d in (
+            got["fading_campaign"], committed["fading_campaign"])]
+        z = two_proportion_z(*counts[0], *counts[1])
+        print(f"46 fading {name}: round 0 {counts[0]} on the card, "
+              f"{counts[1]} committed: {z:.2f} sd (printed, not gated)",
+              flush=True)
+
+    # the committed files' keys and CSV headers
+    for prog, first in (("awgn_campaign", "mcs10"),
+                        ("fidelity_campaign", "txdiv64"),
+                        ("fidelity_campaign", "ulsim16"),
+                        ("ulsim_campaign", "awgn10"),
+                        ("prach_roc", "fmt0_ncs13"),
+                        ("fading_campaign", "test1"),
+                        ("eva_ablation", "test1_ref")):
+        _keys_hold(f"{prog} {first}", committed[prog][first],
+                   got[prog][first])
+    _keys_hold("doppler_campaign", committed["doppler_campaign"],
+               got["doppler_campaign"]["doppler_campaign"])
+    dop, cdop = got["doppler_campaign"]["doppler_campaign"], \
+        committed["doppler_campaign"]
+    if set(cdop["dl"][0]) != set(dop["dl"][0]) or set(
+            cdop["dl"][0]["points"][0]) != set(dop["dl"][0]["points"][0]) \
+            or set(cdop["prach"][0]) != set(dop["prach"][0]) or \
+            len(dop["dl"]) != len(cdop["dl"]):
+        raise AssertionError("46 doppler_campaign: rows differ in keys")
+    _keys_hold("turbo_roofline", committed["turbo_roofline"],
+               got["turbo_roofline"]["turbo_roofline"], ROOFLINE_TPU_KEYS)
+    scale = got["scale_campaign"]["scale_campaign"]
+    _keys_hold("scale_campaign", committed["scale_campaign"], scale)
+    if not set(committed["scale_campaign"]["rows"][0]) <= set(
+            scale["rows"][0]) or [r["n_dev"] for r in scale["rows"]] != [
+            1, 2, 4]:
+        raise AssertionError(f"46 scale_campaign rows: {scale['rows']}")
+    for prog, tag, ref in (("awgn_campaign", "mcs10", "awgn_results/mcs10"),
+                           ("ulsim_campaign", "awgn10",
+                            "ulsim_results/awgn10")):
+        if _header(f"{out}/{prog}/{tag}.csv") != _header(f"{ref}.csv"):
+            raise AssertionError(f"46 {prog}: CSV header")
+
+    # resume: a second run of each finds every configuration's file
+    for prog, mod, argv, names in runs:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            mod.main(argv + ["--out-dir", f"{out}/{dirs.get(prog, prog)}"])
+        skipped = [name for name in names
+                   if f"{name}: exists, skipping" in text.getvalue()]
+        if skipped != names:
+            raise AssertionError(f"46 {prog}: resumed {skipped} of {names}")
+    print("46 resume: a second run of each program skipped every "
+          "configuration", flush=True)
+    if launch_shapes() != launched:
+        raise AssertionError("46: a resumed run launched a kernel")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"launched": launched,
+            "held": _hold_each(launched, held_keys, "46 campaigns", dev, gen,
+                               timings)}
 
 
 def capstone_tti_steps(cap_sim, pf_sim) -> list:
@@ -3723,15 +4055,22 @@ def main() -> None:
                       check_kernels_capstone, dev, gen, timings,
                       _sum_shapes(*cap.values()))
     modem = _phase(43, "the runtime at 20 MHz", runtime_20mhz, dev)
+    # every (kernel, shape) a row of the kernels line holds so far
+    held_keys = PHASE3_KEYS | {(name, key) for name, key, _ in
+                               held + held_cap} | set(EARLIER_V2_KEYS)
     par = _phase(44, "parallel on the card", parallel_on_card, dev, gen,
-                 timings, PHASE3_KEYS | {(name, key) for name, key, _ in
-                                         held + held_cap})
+                 timings, held_keys)
+    ported = _phase(45, "the port bench", port_bench, dev, gen, timings,
+                    held_keys)
+    camp = _phase(46, "the campaign programs", campaigns, dev, gen, timings,
+                  held_keys)
     obs = _phase(42, "observability on the flagship", observability_flagship,
                  dev)
     cap_steps = capstone_tti_steps(cap_sim, pf_sim)
     ul_dev, mb_dev, full_dev, oai_dev, step_dev = _phase(
         16, "device time of each kernel (run last)", device_times, timings,
-        v1_call, dd_sim, ul_sim, mb_sim, steps_20mhz + cap_steps, full_sim,
+        v1_call, dd_sim, ul_sim, mb_sim,
+        steps_20mhz + cap_steps + ported["steps"], full_sim,
         oai_frames, [label for label, _ in cap_steps])
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
@@ -3778,7 +4117,12 @@ def main() -> None:
     # time and v2's share of it.
     sources = {"turbo_half_iter": ("turbo_half_iter.cu",
                                    "turbo_pallas.py:219"),
-               "mrc_llr": ("mrc_llr.cu", "equalize_llr.py:40")}
+               "mrc_llr": ("mrc_llr.cu", "equalize_llr.py:40"),
+               "demap_llr": ("mrc_llr.cu", "equalize_llr.py:138")}
+    # the first row of each (kernel, shape): later phases' launches go to it
+    row_of = {key: rows[0 if key[0] == "turbo_half_iter" else 2]
+              for key in PHASE3_KEYS}
+    row_of.update(zip(EARLIER_V2_KEYS[:2], rows[4:6]))
     for name, key, row in held:
         by_phase = {n: c[name, key] for n, c in tti.items()
                     if (name, key) in c}
@@ -3797,6 +4141,7 @@ def main() -> None:
             replaces=f"openair4g_tpu/ops/{tpu}",
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
+        row_of.setdefault((name, key), rows[-1])
     # The system slice's row: v2 at the full-PHY oaisim shape, with phase
     # 36's launches at it, those a TTI, the device time a TTI of phases 36
     # and 37 and v2's share of phase 36's.
@@ -3815,6 +4160,7 @@ def main() -> None:
         oaisim_abstraction_tti_device_ms={
             label: oai[label]["tti_device_ms"] for label, _ in oai_frames[1:]},
         **turbo_oai, share=turbo_oai["bound_ms"] / turbo_oai["device_ms"]))
+    row_of[EARLIER_V2_KEYS[2]] = rows[-1]
     # The capstone slice's rows: v2 at each shape the capstones launched,
     # with its launches by phase (39-41), the device time of a 100 PRB
     # capstone DL PHY TTI and a 4-UE multi-UE TTI, the SoftModem's
@@ -3833,22 +4179,47 @@ def main() -> None:
             replaces="openair4g_tpu/ops/turbo_pallas.py:219",
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
-    # The parallel slice's rows: each (kernel, shape) the ranks of phase 44
-    # launched and it held, with those launches; the ranks' launches at the
-    # flagship shapes of phase 3 go to that phase's rows.
-    for name, key, row in par["held"]:
-        src, tpu = sources[name]
-        n = par["launched"][name, key]
-        rows.append(dict(
-            name=name, route="cuda", source=f"openair4g_tpu_torch/csrc/{src}",
-            replaces=f"openair4g_tpu/ops/{tpu}", launches=n,
-            launches_by_phase={44: n}, **row,
-            share=row["bound_ms"] / row["device_ms"]))
-    for row, kernel in ((rows[0], "turbo_half_iter"), (rows[2], "mrc_llr")):
-        n = sum(v for (name, key), v in par["launched"].items()
-                if name == kernel and (name, key) in PHASE3_KEYS)
-        row["launches"] += n
-        row["launches_by_phase"] = {44: n}
+        row_of.setdefault((name, key), rows[-1])
+    # The bench's row: v2 at the turbo cell's shape, with its launches a
+    # decode call and the two decodes' device time. Then the rows of each
+    # (kernel, shape) that the ranks of phase 44, the bench (45) and the
+    # campaigns (46) launched and held, with those launches; their
+    # launches at a shape an earlier row holds go to that row.
+    by_step = {label: step_dev[label]["device_ms"]
+               for label, _ in ported["steps"]}
+    turbo_cell = ported["cells"]["turbo"]
+    n = ported["launched"]["turbo_half_iter", BENCH_TURBO]
+    rows.append(dict(
+        name="turbo_half_iter", route="cuda",
+        source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
+        replaces="openair4g_tpu/ops/turbo_pallas.py:219", launches=n,
+        launches_by_phase={45: n},
+        launches_per_decode=turbo_cell["launches"],
+        decode_device_ms={mode: by_step[f"bench turbo {mode}"]
+                          for mode in turbo_cell["value"]},
+        **ported["turbo_row"],
+        share=ported["turbo_row"]["bound_ms"]
+        / ported["turbo_row"]["device_ms"]))
+    row_of["turbo_half_iter", BENCH_TURBO] = rows[-1]
+    for phase, res in ((44, par), (45, ported), (46, camp)):
+        own = {("turbo_half_iter", BENCH_TURBO)} if phase == 45 else set()
+        for name, key, row in res["held"]:
+            src, tpu = sources[name]
+            n = res["launched"][name, key]
+            rows.append(dict(
+                name=name, route="cuda",
+                source=f"openair4g_tpu_torch/csrc/{src}",
+                replaces=f"openair4g_tpu/ops/{tpu}", launches=n,
+                launches_by_phase={phase: n}, **row,
+                share=row["bound_ms"] / row["device_ms"]))
+            row_of[name, key] = rows[-1]
+            own.add((name, key))
+        for key, n in res["launched"].items():
+            if key not in own:
+                row = row_of[key]
+                row["launches"] += n
+                by_phase = row.setdefault("launches_by_phase", {})
+                by_phase[phase] = by_phase.get(phase, 0) + n
     rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None

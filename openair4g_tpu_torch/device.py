@@ -6,12 +6,19 @@ GF(2) products must stay exact sums.
 """
 from __future__ import annotations
 
+import subprocess
 import sys
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s, and float32 operations/s outside the tensor cores. The data
+# sheet's 67 TFLOP/s counts an FMA as two; the kernels' add, sub, max and
+# mul issue one a lane a cycle, so an operation counts at half that rate.
+HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12 / 2
 
 # One count per hand-written kernel: each wrapper adds one where it
 # launches its kernel, and nowhere else; the same launches by (kernel,
@@ -66,6 +73,18 @@ def cli_device(prog: str, name: str) -> torch.device:
         sys.exit(f"{prog}: --device {name} but no CUDA device is present "
                  "(pass --device cpu to run on the CPU)")
     return dev
+
+
+def card_name(device) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them; "cpu" for a CPU device,
+    whose times are no device metric."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def count_launch(name: str, shape: tuple) -> None:

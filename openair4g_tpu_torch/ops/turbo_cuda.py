@@ -23,6 +23,10 @@ from ..device import count_launch, device_plan
 
 NEG = -1e9
 BIG = 1e4
+# Float32 operations a trellis position of one half-iteration takes: beta
+# step 40, alpha step 32, LLR 51 (8 states), renormalizations and the two
+# 0.5 scalings 5.
+TURBO_OPS_PER_POS = 128
 
 
 def _trellis_tables():

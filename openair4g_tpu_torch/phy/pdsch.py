@@ -117,12 +117,14 @@ class DlschCodec:
         return out
 
     # ------------------------------------------------------------------ RX --
-    def decode(self, e_llr, w_soft=None, rv: int | None = None):
+    def decode(self, e_llr, w_soft=None, rv: int | None = None,
+               dynamic_stop: bool = True):
         """e_llr [B, G] -> (tb_bits [B, TBS], tb_ok [B], w_soft list).
 
         `w_soft`: per-block soft buffers of an earlier HARQ round, or None;
         the returned list feeds the next round. `rv` must match the
-        transmitter's redundancy version."""
+        transmitter's redundancy version. `dynamic_stop=False` runs all
+        n_turbo_iter iterations (the outputs are the same either way)."""
         cfg, seg = self.cfg, self.seg
         maps = self.maps_by_rv[cfg.rv if rv is None else rv]
         B = e_llr.shape[0]
@@ -149,7 +151,8 @@ class DlschCodec:
             dcfg = turbo.TurboDecoderConfig(
                 K=K, F=F, n_iter=cfg.n_turbo_iter, window=win,
                 warmup=cfg.decoder_warmup,
-                crc_kind="crc24b" if seg.C > 1 else "crc24a")
+                crc_kind="crc24b" if seg.C > 1 else "crc24a",
+                dynamic_stop=dynamic_stop)
             bits, ok = turbo.turbo_decode(stacked, dcfg)
             for i, r in enumerate(rs):
                 results[r] = (bits[i * B:(i + 1) * B], ok[i * B:(i + 1) * B])

@@ -393,3 +393,30 @@ def test_distributed_command_line_starts_with_jax_blocked():
                  "--batch-per-device", "--device", "--backend"):
         assert flag in r.stdout
     assert "--host-devices have no" in " ".join(r.stdout.split())
+
+
+PROGRAMS = ["bench"] + [f"scripts.{name}" for name in (
+    "common", "awgn_campaign", "fading_campaign", "fidelity_campaign",
+    "ulsim_campaign", "doppler_campaign", "prach_roc", "eva_ablation",
+    "turbo_roofline", "flagship_stages", "flagship_profile",
+    "scale_campaign")]
+
+
+def test_bench_and_campaign_programs_are_among_the_checked_ones():
+    names = {m.name for m in pkgutil.walk_packages(
+        openair4g_tpu_torch.__path__, "openair4g_tpu_torch.")}
+    assert {f"openair4g_tpu_torch.{p}" for p in PROGRAMS} <= names
+
+
+@pytest.mark.parametrize("program", ["bench", "scripts.awgn_campaign"])
+def test_program_help_starts_with_jax_blocked(program):
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['openair4g_tpu'] = None\n"
+            "sys.argv = ['prog', '--help']\n"
+            f"runpy.run_module('openair4g_tpu_torch.{program}',\n"
+            "                 run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "--device" in r.stdout
