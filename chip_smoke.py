@@ -23,8 +23,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the flagship: DlsimFading round 0, 100 PRB MCS 26, EVA, joint
      estimation, batch 128, 8 turbo iterations, drawn on the card. At
      26 dB every TB and every DCI must decode; at 24 dB TBs must decode
-     and BLER and subframes/s are printed. Both its kernels' launch counts
-     over these runs must be non-zero;
+     and BLER and subframes/s are printed. Its three kernels' launch
+     counts over these runs (v2, mrc_llr, the Viterbi) must be non-zero;
   6. demap_llr against its plain version on the card at the multi-antenna
      paths' shapes, one layer of an MMSE output read in place;
   7. the v1 turbo kernel against its plain version and the v2 kernel at
@@ -127,7 +127,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      counts its launches by shape too), against its plain version on
      random inputs of that shape: the flagship load's v2 at 1,408 x 5,760
      and mrc_llr at Qm 6, UlGrantSim's and TddFrameSim's codecs, the TDD
-     frame's PCFICH, PDCCH and PDSCH; only v2 and mrc_llr may launch;
+     frame's PCFICH, PDCCH and PDSCH; only v2, mrc_llr and the Viterbi
+     (held in phase 47) may launch;
  34. the system emulator at small size (6 PRB), card against CPU on the
      same draws (the CPU sim's, kept by TTI): Oaisim in the abstraction
      mode with EESM, PF and 4 HARQ rounds, with MIESM, TDD, UL traffic
@@ -158,7 +159,7 @@ Phases, in order; any failure raises and the script exits non-zero:
  39. the single-UE capstone at the reference test's size (25 PRB, 12 dB,
      seed 0; decoder window 240 on both sides) on the CPU and on the
      card: the result (every flag, TTIs, PHY runs, the trace), the pcap
-     bytes and the MSC text equal; only v2 launches;
+     bytes and the MSC text equal; only v2 and the Viterbi launch;
  40. FullStackSim at 100 PRB: the ladder (12 dB, seed 0) with every
      assertion of tests/test_capstone.py::test_full_stack_over_the_air
      and the JAX run's 53 TTIs and PHY runs, the 450 B NAS ladder and the
@@ -223,6 +224,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      units) and CSV header plus device and seconds; a second run of each
      program skips every configuration; then every (kernel, shape) they
      launched against its plain version;
+ 47. the Viterbi kernel (csrc/viterbi.cu, run before 42): its launches on
+     the paths by phase and (R, K) shape, gathered whenever the counters
+     are reset and at each phase's start and end (the ranks' of phase 44
+     added); every phase whose paths decode a DCI, a PBCH or a CQI report
+     of 12 bits or more must have launched it, and no other. At every
+     shape, the kernel against its plain version (viterbi_decode_ref) on
+     the card, torch.equal, on Gaussian LLRs and on integer LLRs in [-2,
+     2] that force ties; the kernel's time by CUDA events over back-to-
+     back calls and one row's alone, the plain version's, the bound from
+     bytes and operations and the latency floor of a row's 2 T dependent
+     steps. Then the flagship step (phase 5's configuration, 24 dB) with
+     the synced dci_blind_decode timed, with the kernel and with the
+     plain version called directly, in turns (kernel, plain, plain,
+     kernel), each a fresh sim on one seed: the turns' TB and DCI flags
+     must be equal;
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
@@ -230,7 +246,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      turbo_half_iter_kernel device events (this holds a profiler
      session, so it runs after every other path);
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44-46 timed, by torch.profiler's
+     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44-47 timed, by torch.profiler's
      device-side events (the kernel alone, without the host's enqueue
      time that CUDA events around back-to-back calls of a few-µs kernel
      measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
@@ -262,7 +278,10 @@ the flagship step with the profiler on and off; each (kernel, shape) of
 phases 44d, 45 and 46 with the launches at it there, launches_by_phase
 {phase: n}, and their launches at phase 3's flagship shapes added to those
 rows; v2 at the bench's turbo shape with its launches a decode of each
-mode and each decode's device time),
+mode and each decode's device time; the Viterbi at each (R, K) with its
+launches by phase, the latency floor and one row's time, and at phase 5's
+shape its launches a flagship step and the A/B of phase 47), the total
+seconds,
 then the device JSON line. It needs a CUDA device and imports
 nothing of JAX.
 """
@@ -291,6 +310,8 @@ from openair4g_tpu_torch.epc import crypto
 from openair4g_tpu_torch.ops.equalize_llr import (demap_llr_fused,
                                                   demap_llr_fused_ref,
                                                   mrc_llr, mrc_llr_ref)
+from openair4g_tpu_torch.ops.convcode import (viterbi_decode,
+                                              viterbi_decode_ref)
 from openair4g_tpu_torch.ops.turbo_cuda import (TURBO_OPS_PER_POS,
                                                 half_iteration,
                                                 half_iteration_prepped,
@@ -302,6 +323,7 @@ from openair4g_tpu_torch.ops.llr import map_symbols
 from openair4g_tpu_torch.phy.control_region import make_control_region_map
 from openair4g_tpu_torch.phy.dci_formats import n_rbg, pack_dci_format1
 from openair4g_tpu_torch.phy.ofdm import ofdm_demodulate, ofdm_modulate
+from openair4g_tpu_torch.phy import pdcch as pdcch_mod
 from openair4g_tpu_torch.phy.pdcch import ue_search_candidates
 from openair4g_tpu_torch.phy.pdsch import DlschCodec
 from openair4g_tpu_torch.phy.resource_grid import (extract_data_res,
@@ -314,6 +336,7 @@ from openair4g_tpu_torch.phy.srs import SrsConfig
 from openair4g_tpu_torch.sched import (CellConfig, EnbRx, EnbTx, UeRx, UeTx,
                                        UeUlConfig)
 from openair4g_tpu_torch.sim import capstone as capstone_mod
+from openair4g_tpu_torch.sim import dlsim as dlsim_mod
 from openair4g_tpu_torch.sim.capstone import (SI_RNTI, CapstoneConfig,
                                               FullStackSim)
 from openair4g_tpu_torch.sim.capstone_multiue import (HandoverPhySim,
@@ -372,6 +395,35 @@ TURBO_SCRATCH_MAX = 40e6
 # The v1 kernel's limit: the same checkpoints (a per-node stack over its
 # W + U rows would take 285 MB).
 TURBO_V1_SCRATCH_MAX = 45e6
+
+
+# The Viterbi kernel's launches on the paths, {phase: {(R, K): launches}}.
+# Every DCI, PBCH and CQI decode goes through it and the phases reset the
+# counters many times, so its launches are gathered whenever they are
+# reset (reset_counts) and at each phase's start and end; phase 47 holds
+# the kernel at every shape gathered.
+VITERBI_LAUNCHES: dict = {}
+_GATHERED = {"phase": None, "seen": {}}
+
+
+def _gather_viterbi() -> None:
+    """Add the Viterbi launches since the last gathering to the current
+    phase's."""
+    now = {key: n for (name, key), n in launch_shapes().items()
+           if name == "viterbi"}
+    into = VITERBI_LAUNCHES.setdefault(_GATHERED["phase"], {})
+    for key, n in now.items():
+        new = n - _GATHERED["seen"].get(key, 0)
+        if new:
+            into[key] = into.get(key, 0) + new
+    _GATHERED["seen"] = now
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0, the Viterbi launches gathered first."""
+    _gather_viterbi()
+    reset_launch_counts()
+    _GATHERED["seen"] = {}
 
 
 def _time_ms(fn, n: int) -> float:
@@ -733,7 +785,7 @@ def flagship(dev) -> tuple:
                             n_turbo_iter=8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    reset_launch_counts()
+    reset_counts()
 
     sim = DlsimFading(cfg, device=dev)
     n0 = 10.0 ** (-26.0 / 10.0)
@@ -767,7 +819,8 @@ def flagship(dev) -> tuple:
     print(f"launches over the flagship runs: {counts}", flush=True)
     if errs == trials:
         raise AssertionError("flagship at 24 dB decodes no TB")
-    if min(counts["turbo_half_iter"], counts["mrc_llr"]) == 0:
+    if min(counts["turbo_half_iter"], counts["mrc_llr"],
+           counts["viterbi"]) == 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     return counts, 2 + n_rep       # steps: 26 dB, settle, timed
 
@@ -850,7 +903,7 @@ def check_turbo_v1(dev, gen, timings) -> tuple:
     interior = torch.ones(N, dtype=torch.bool, device=dev)
     interior[TURBO_W - 1::TURBO_W] = False
     d_v2 = (got - v2)[:, interior].abs().max().item()
-    reset_launch_counts()
+    reset_counts()
     ms = _time_ms(lambda: half_iteration_prepped(lin, gpf, gpb, TURBO_W,
                                                  TURBO_U), 20)
     n_v1 = launch_counts()["turbo_half_iter_v1"]
@@ -959,7 +1012,7 @@ def tm2_anchor(dev) -> int:
     W0, W1 = sim.wiener(14.0)
     sim.step(torch.Generator(device=dev).manual_seed(99), 10 ** -1.4, W0, W1)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     bler = {}
     for snr in (14.0, 15.0):
         t0 = time.perf_counter()
@@ -980,7 +1033,8 @@ def tm2_anchor(dev) -> int:
         raise AssertionError(f"TM2 BLER at 15 dB {bler[15.0]} above 0.021")
     if sim.dci_miss:
         raise AssertionError(f"TM2: {sim.dci_miss} DCI misses at 15 dB")
-    if min(counts["demap_llr"], counts["turbo_half_iter"]) == 0:
+    if min(counts["demap_llr"], counts["turbo_half_iter"],
+           counts["viterbi"]) == 0:
         raise AssertionError(f"a kernel of the TM2 path never launched: "
                              f"{counts}")
     return counts["demap_llr"]
@@ -997,7 +1051,7 @@ def tm3_full_width(dev) -> int:
     W0, W1 = sim.wiener(40.0)
     sim.step(gen, n0, W0, W1)                     # settle the allocator
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = [sim.step(gen, n0, W0, W1) for _ in range(n_rep)]
     torch.cuda.synchronize()
@@ -1015,7 +1069,8 @@ def tm3_full_width(dev) -> int:
         raise AssertionError(f"TM3: {dci_miss} DCI misses at 40 dB")
     if max(bler) > 0.2:
         raise AssertionError(f"TM3 codeword BLER {bler} above 0.2")
-    if min(counts["demap_llr"], counts["turbo_half_iter"]) == 0:
+    if min(counts["demap_llr"], counts["turbo_half_iter"],
+           counts["viterbi"]) == 0:
         raise AssertionError(f"a kernel of the TM3 path never launched: "
                              f"{counts}")
     return counts["demap_llr"]
@@ -1157,7 +1212,7 @@ def dd_full_width(dev) -> dict:
     torch.cuda.synchronize()
     snr, tried = 14.6, []
     while True:
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         errs, reach = sim.run_snr(snr, 8 * BATCH, seed=1)
         torch.cuda.synchronize()
@@ -1185,7 +1240,8 @@ def dd_full_width(dev) -> dict:
         raise AssertionError(f"dd 1x2: no HARQ gain {errs}")
     if sim.dci_miss > 0.01 * reach[0]:
         raise AssertionError(f"dd 1x2: {sim.dci_miss} DCI misses")
-    if min(counts["mrc_llr"], counts["turbo_half_iter"]) == 0:
+    if min(counts["mrc_llr"], counts["turbo_half_iter"],
+           counts["viterbi"]) == 0:
         raise AssertionError(f"a kernel of the dd 1x2 path never launched: "
                              f"{counts}")
     return counts, (sim, snr)
@@ -1280,7 +1336,7 @@ def entry_point(dev) -> int:
                     device=dev)
     sim.run_snr(1.0, 512, seed=9)                # settle the allocator
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     errs, trials = sim.run_snr(1.0, 4 * 512, seed=1)
     torch.cuda.synchronize()
@@ -1390,7 +1446,7 @@ def check_small_uplink(dev) -> int:
     (kernels) against CPU (plain versions) on the same draws; every
     round's flags, the errs and reach, the UCI error counts."""
     B = 8
-    reset_launch_counts()
+    reset_counts()
     for name, case, low in _SMALL_UL:
         cfg = UlsimConfig(batch=B, n_turbo_iter=4, decoder_window=240, **case)
         cpu, gpu = Ulsim(cfg, device="cpu"), Ulsim(cfg, device=dev)
@@ -1442,7 +1498,7 @@ def uplink_full_width(dev) -> tuple:
     torch.cuda.synchronize()
     launches, out = 0, {}
     for snr, steps in ((30.0, 2), (UL_MID_SNR, 8)):
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         errs, reach = sim.run_snr(snr, steps * BATCH, seed=1)
         torch.cuda.synchronize()
@@ -1469,7 +1525,7 @@ def uplink_full_width(dev) -> tuple:
                              f"HARQ gain {errs}")
     gen = torch.Generator(device=dev).manual_seed(3)
     W = sim.wiener(UL_MID_SNR)
-    reset_launch_counts()
+    reset_counts()
     sim.step(gen, 10.0 ** (-UL_MID_SNR / 10.0), W)
     torch.cuda.synchronize()
     per_step = launch_counts()["turbo_half_iter"]
@@ -1490,7 +1546,7 @@ _UL_CAMPAIGN = [("awgn4", -2.0), ("awgn10", 2.75), ("awgn16", 7.5),
 
 
 def uplink_anchors(dev) -> int:
-    reset_launch_counts()
+    reset_counts()
     for mcs, channel, tdc, lo, mid, hi in _UL_ANCHORS:
         sim = Ulsim(UlsimConfig(mcs=mcs, n_rb=25, n_rb_alloc=25,
                                 channel=channel, batch=BATCH,
@@ -1567,10 +1623,11 @@ def _equal(name: str, cpu, gpu) -> None:
 
 
 def _no_kernel(what: str) -> None:
-    """The control and sync paths run no hand-written kernel: their LLRs
-    go through the plain demap, as the reference's do."""
+    """The control and sync paths run no hand-written kernel but the
+    Viterbi (phase 47 checks which phases launch it): their LLRs go
+    through the plain demap, as the reference's do."""
     counts = launch_counts()
-    if any(counts.values()):
+    if any(n for name, n in counts.items() if name != "viterbi"):
         raise AssertionError(f"{what}: launches {counts}")
 
 
@@ -1610,7 +1667,7 @@ def check_small_control(dev) -> int:
     error count equal, soft values within the tolerance printed. Returns
     the v2 launches of Mbmssim's runs."""
     B = 16
-    reset_launch_counts()
+    reset_counts()
     cfg = PdcchsimConfig(n_rb=25, n_pdcch=3, L=4, batch=B)
     cpu, gpu = Pdcchsim(cfg, device="cpu"), Pdcchsim(cfg, device=dev)
     txt = []
@@ -1760,7 +1817,7 @@ def check_turbo_mbsfn(dev, gen, timings) -> dict:
 def _mbms_run(sim, snr: float, steps: int, what: str) -> tuple:
     """BLER, step time and v2 launches of `steps` steps at `snr`, with the
     launch counts set to 0 just before and read just after."""
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     errs, trials = sim.run_snr(snr, steps * BATCH, seed=1)
     torch.cuda.synchronize()
@@ -1777,7 +1834,7 @@ def _mbms_run(sim, snr: float, steps: int, what: str) -> tuple:
 
 def _per_step_launches(sim, snr: float) -> int:
     gen = torch.Generator(device=sim.device).manual_seed(3)
-    reset_launch_counts()
+    reset_counts()
     sim.step(gen, 10.0 ** (-snr / 10.0))
     torch.cuda.synchronize()
     return launch_counts()["turbo_half_iter"]
@@ -1843,7 +1900,7 @@ def control_anchors(dev) -> int:
     tests/test_sync_pbch.py's cell-search and CFO points, prach_roc.json's
     four configurations at threshold 15 (within 3 sd of the JSON over as
     many occasions), tests/test_mbms.py's two link points."""
-    reset_launch_counts()
+    reset_counts()
     sim = Pbchsim(PbchsimConfig(batch=256), device=dev)
     txt = []
     for snr, ref in ((-6.2, 0.499), (-4.2, 0.088), (-2.2, 0.0092)):
@@ -1943,7 +2000,7 @@ def sync_prach_20mhz(dev) -> list:
     capture, FFTs of 262,144; 5 frequency hypotheses) and the time-domain
     Prachsim at n_fft 2048, n_rb_ul 100 (N = 24,576, k0 = -7,187):
     detection rates, step times; returns the steps phase 16 profiles."""
-    reset_launch_counts()
+    reset_counts()
     out = []
     for cfo, snr in ((0.0, 0.0), (0.2, 10.0)):
         sim = Syncsim(SyncsimConfig(n_rb=100, nid1=57, nid2=1, cfo_scs=cfo,
@@ -2286,12 +2343,13 @@ def check_kernels_launched(dev, gen, timings, launched: dict, held: list,
     29-31 launched and phase 28 did not hold, against its plain version on
     random inputs of that shape: mrc_llr within rtol = atol = 3e-4, v2 bit
     for bit; each labelled with where[(kernel, shape)], the run it was
-    counted a step of. Only those two kernels may launch there. Returns
-    [(kernel, launch key, row)] as check_kernels_per_tti does."""
+    counted a step of. Only those two kernels and the Viterbi (held in
+    phase 47) may launch there. Returns [(kernel, launch key, row)] as
+    check_kernels_per_tti does."""
     done = {(name, key) for name, key, _ in held}
     out = []
     for name, key in sorted(launched, key=str):
-        if (name, key) in done:
+        if (name, key) in done or name == "viterbi":
             continue
         label = where.get((name, key), "phases 29-31")
         if name == "mrc_llr":
@@ -2302,7 +2360,8 @@ def check_kernels_launched(dev, gen, timings, launched: dict, held: list,
             row = _hold_v2(label, *key, dev, gen, timings)
         else:
             raise AssertionError(f"{name} {key} launched on the per-TTI "
-                                 "paths: only v2 and mrc_llr may be")
+                                 "paths: only v2, mrc_llr and the Viterbi "
+                                 "may be")
         out.append((name, key, row))
     return out
 
@@ -2326,7 +2385,7 @@ def fullsim_full_width(dev) -> tuple:
     R = sim.cfg.n_harq_rounds
     sim.run_snr(FULL_HIGH_SNR, BATCH, seed=99)      # settle the allocator
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     errs, reach = sim.run_snr(FULL_HIGH_SNR, 2 * BATCH, seed=1)
     shapes_hi = launch_shapes()
     print(f"fullsim 100 PRB MCS 26 EVA 4 rounds at {FULL_HIGH_SNR} dB: errs "
@@ -2337,7 +2396,7 @@ def fullsim_full_width(dev) -> tuple:
                              f"{sim.dci_miss} DCI misses")
     snr, tried, steps = FULL_MID_SNR, [], 8
     while True:
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         errs, reach = sim.run_snr(snr, steps * BATCH, seed=1)
         torch.cuda.synchronize()
@@ -2364,7 +2423,8 @@ def fullsim_full_width(dev) -> tuple:
     if sim.dci_miss > 0.01 * reach[0]:
         raise AssertionError(f"fullsim: {sim.dci_miss} DCI misses")
     if counts["mrc_llr"] != 2 * R * steps or counts["turbo_half_iter"] == 0 \
-            or counts["demap_llr"] or counts["turbo_half_iter_v1"]:
+            or counts["demap_llr"] or counts["turbo_half_iter_v1"] \
+            or counts["viterbi"] == 0:
         raise AssertionError(f"fullsim launches {counts}: mrc_llr must "
                              f"launch 2 x {R} rounds x {steps} steps")
     return (_sum_shapes(shapes_hi, shapes),
@@ -2380,7 +2440,7 @@ def fullsim_defaults_and_entry_points(dev) -> dict:
     TBS over the CFI-1 G, 7,224 / 30,000, as the reference's);
     generate_frame at 100 PRB equal to its CPU run. Returns the launches
     by (kernel, shape) and those a step of the defaults' run."""
-    reset_launch_counts()
+    reset_counts()
     sim = FullChainSim(FullsimConfig(), device=dev)
     errs, reach = sim.run_snr(6.0, 4 * sim.cfg.batch, seed=2)
     per_step = _per_step(launch_shapes(), 4, "fullsim defaults at 6 dB")
@@ -2432,7 +2492,7 @@ def closed_loops_full_width(dev) -> tuple:
     UlGrantSim at DL 20 / UL 30 dB and a frame of TddFrameSim."""
     sim = UlGrantSim(UlGrantConfig(**GRANT_FULL), device=dev)
     sim.run_snr(20.0, 30.0, BATCH, seed=99)          # settle the allocator
-    reset_launch_counts()
+    reset_counts()
     per_step = {}
     for snr_dl, snr_ul in ((20.0, 30.0), (-30.0, 30.0)) * 2:
         t0 = time.perf_counter()
@@ -2457,7 +2517,7 @@ def closed_loops_full_width(dev) -> tuple:
                                    batch=32), device=dev)
     tdd.run_frame(12.0, seed=9)                     # build the chains
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = tdd.run_frame(12.0, seed=1)
     torch.cuda.synchronize()
@@ -2472,7 +2532,8 @@ def closed_loops_full_width(dev) -> tuple:
         raise AssertionError(f"TddFrameSim at 100 PRB: {out}")
     tdd_shapes = launch_shapes()
     counts = {k: v + launch_counts()[k] for k, v in counts.items()}
-    if counts["turbo_half_iter"] == 0 or counts["mrc_llr"] == 0:
+    if min(counts["turbo_half_iter"], counts["mrc_llr"],
+           counts["viterbi"]) == 0:
         raise AssertionError(f"closed loops: launches {counts}")
     frame = _per_step(tdd_shapes, 1, "TddFrameSim frame at 12 dB")
     return _sum_shapes(shapes, tdd_shapes), {**frame, **per_step}
@@ -2483,7 +2544,7 @@ def per_tti_anchors(dev) -> dict:
     configurations, trial counts and assertions (tests/test_fullsim.py:
     76-83, tests/test_sched_ul.py:123-134, tests/test_tddsim.py:31-39,
     50-66 and 69-92)."""
-    reset_launch_counts()
+    reset_counts()
     sim = FullChainSim(FullsimConfig(n_rb=25, mcs=10, channel="EVA",
                                      n_harq_rounds=3, batch=32,
                                      n_turbo_iter=6), device=dev)
@@ -2682,7 +2743,7 @@ def oaisim_full_phy(dev) -> tuple:
     sim._tti_phy = counted
     frame_s = []
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     for _ in range(4):
         t0 = time.perf_counter()
         out = sim.run_frames(1)
@@ -2720,7 +2781,7 @@ def oaisim_full_phy(dev) -> tuple:
         raise AssertionError(f"oaisim full PHY launched {shapes}")
     one = Oaisim(OaisimConfig(**dict(OAISIM_FULL, n_enb=1,
                                      tx_power_db=70.0)), device=dev)
-    reset_launch_counts()
+    reset_counts()
     out1 = one.run_frames(4)
     torch.cuda.synchronize()
     shapes = _sum_shapes(shapes, launch_shapes())
@@ -2752,7 +2813,7 @@ def oaisim_abstraction_full(dev) -> list:
     for esm in ("eesm", "miesm"):
         sim = Oaisim(OaisimConfig(**OAISIM_ABS_FULL, esm=esm), device=dev)
         torch.cuda.synchronize()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out = sim.run_frames(20)
         torch.cuda.synchronize()
@@ -2968,7 +3029,7 @@ def _capstone_run(cfg: dict, dev, art: str | None = None):
     sim = FullStackSim(CapstoneConfig(**cfg), artifact_dir=art, device=dev)
     timers = _capstone_timers(sim)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = sim.run()
     torch.cuda.synchronize()
@@ -2976,9 +3037,11 @@ def _capstone_run(cfg: dict, dev, art: str | None = None):
 
 
 def _only_v2(shapes: dict, what: str) -> None:
-    if not shapes or any(k[0] != "turbo_half_iter" for k in shapes):
-        raise AssertionError(f"{what}: launches {shapes}; v2 must launch "
-                             "and nothing else")
+    """The capstones' PHY launches v2 and the Viterbi (its DCI searches and
+    PBCH decodes) and nothing else: the plain demap, as the reference's."""
+    if {k[0] for k in shapes} != {"turbo_half_iter", "viterbi"}:
+        raise AssertionError(f"{what}: launches {shapes}; v2 and the "
+                             "Viterbi must launch and nothing else")
 
 
 def check_small_capstone(dev) -> dict:
@@ -2993,7 +3056,7 @@ def check_small_capstone(dev) -> dict:
     for d in ("cpu", dev):
         art = f"build/capstone_small_{d}"
         sim = FullStackSim(CapstoneConfig(**cfg), artifact_dir=art, device=d)
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = sim.run()
         res.pop("artifacts")
@@ -3126,7 +3189,7 @@ def _multiue_run(case, dev, art=None):
     sim = MultiUeSim(CapstoneConfig(**cfg), device=dev, artifact_dir=art,
                      **mk)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = sim.run()
     torch.cuda.synchronize()
@@ -3166,7 +3229,7 @@ def multiue_full_width(dev) -> tuple:
     art = "build/capstone_multiue_100"
     two, res, dt, shapes = _multiue_run(MULTIUE_HO, dev, art)
     total = _sum_shapes(total, shapes)
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = HandoverPhySim(two).run()
     torch.cuda.synchronize()
@@ -3202,6 +3265,8 @@ def check_kernels_capstone(dev, gen, timings, launched: dict) -> list:
     MCS that PF's CQIs picked). Returns [(kernel, launch key, row)]."""
     out = []
     for name, key in sorted(launched, key=str):
+        if name == "viterbi":         # held in phase 47
+            continue
         rows, N, W, U = key
         row = _hold_v2("capstone", rows, N, W, U, dev, gen, timings)
         out.append((name, key, row))
@@ -3635,11 +3700,11 @@ def _hold_each(launched: dict, held_keys: set, label: str, dev, gen,
                timings) -> list:
     """Every (kernel, launch key) of launched that no earlier phase held,
     against its plain version (v2 bit for bit, mrc_llr and demap_llr
-    within rtol = atol = 3e-4), labelled with label and its launches.
-    Returns [(kernel, key, row)]."""
+    within rtol = atol = 3e-4), labelled with label and its launches; the
+    Viterbi's are held in phase 47. Returns [(kernel, key, row)]."""
     out = []
     for name, key in sorted(launched, key=str):
-        if (name, key) in held_keys:
+        if (name, key) in held_keys or name == "viterbi":
             continue
         what = f"{label} x{launched[name, key]}"
         if name == "mrc_llr":
@@ -3680,7 +3745,7 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
                          text=True, check=True).stdout.strip()
     cells, steps, launched = {}, [], {}
     for cell in bench.CELLS:
-        reset_launch_counts()
+        reset_counts()
         row, cell_steps = cell(dev)
         torch.cuda.synchronize()
         shapes = launch_shapes()
@@ -3700,7 +3765,8 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
     if set(launched["turbo"]) != {("turbo_half_iter", BENCH_TURBO)}:
         raise AssertionError(f"turbo cell launched {launched['turbo']}")
     kernels_of = {c: {name for name, _ in s} for c, s in launched.items()}
-    if kernels_of["flagship"] != {"turbo_half_iter", "mrc_llr"} or \
+    if kernels_of["flagship"] != {"turbo_half_iter", "mrc_llr",
+                                  "viterbi"} or \
             kernels_of["awgn"] != {"turbo_half_iter"} or \
             kernels_of["front_end"]:
         raise AssertionError(f"the cells launched {kernels_of}")
@@ -3810,7 +3876,7 @@ def campaigns(dev, gen, timings, held_keys: set) -> dict:
     ]
     dirs = {"fidelity_campaign": "fidelity", "prach_roc": "prach"}
     got = {}
-    reset_launch_counts()
+    reset_counts()
     for prog, mod, argv, names in runs:
         t0 = time.perf_counter()
         res = mod.main(argv + ["--out-dir",
@@ -3915,6 +3981,155 @@ def campaigns(dev, gen, timings, held_keys: set) -> dict:
                                timings)}
 
 
+# Phases whose paths decode a DCI, a PBCH or a CQI report of 12 bits or
+# more, and so launch the Viterbi kernel; no other phase before 47 may.
+VITERBI_PHASES = {4, 5, 8, 9, 10, 12, 13, 14, 15, 18, 19, 22, 25, 27, 29,
+                  30, 31, 32, 39, 40, 41, 44, 45, 46}
+# Float32 operations of one row's trellis step: the 8 distinct branch
+# metrics (6 adds); for each of the 64 states two candidate adds, the
+# compare, the max and the normalising subtract; the max over the states.
+VITERBI_OPS_PER_STEP = 6 + 64 * 5 + 63
+# The least latency of one dependent step: a float32 add, 4 cycles.
+DEPENDENT_STEP_CYCLES = 4
+# Flagship steps timed a turn of phase 47's A/B.
+N_AB = 3
+
+
+def _viterbi_bound(R: int, K: int, n_wrap: int, sm_mhz: float) -> dict:
+    """The least time of a decode of [R, 3, K]: the bytes (the LLRs in, the
+    decisions out) and the ACS's float32 operations at the card's peaks;
+    and the latency floor of a row's 2 T dependent steps (the ACS and the
+    traceback) at the card's top SM clock, whatever the rows beside it."""
+    T = n_wrap * K
+    out = _bound(R * 13 * K, R * T * VITERBI_OPS_PER_STEP)
+    out["latency_floor_ms"] = 2 * T * DEPENDENT_STEP_CYCLES / (sm_mhz * 1e3)
+    return out
+
+
+def _flagship_dci_ab(dev) -> dict:
+    """The flagship step (phase 5's configuration, 24 dB) with dlsim's
+    dci_blind_decode timed between synchronizes, with the kernel and with
+    the plain version called directly (pdcch's viterbi_decode swapped for
+    viterbi_decode_ref), in turns: kernel, plain, plain, kernel. Each turn
+    is a fresh sim, one settling step and N_AB timed steps from one seed;
+    the turns' TB and DCI flags must be equal. Returns {mode: {"step_ms":
+    [ms a step, by turn], "dci_ms": [ms of the DCI decode a step]}}."""
+    n0 = 10.0 ** (-24.0 / 10.0)
+    inner = dlsim_mod.dci_blind_decode
+    spent = [0.0]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    out = {mode: {"step_ms": [], "dci_ms": []} for mode in ("kernel",
+                                                            "plain")}
+    flags = []
+    dlsim_mod.dci_blind_decode = timed
+    try:
+        for mode in ("kernel", "plain", "plain", "kernel"):
+            pdcch_mod.viterbi_decode = (viterbi_decode if mode == "kernel"
+                                        else viterbi_decode_ref)
+            sim = DlsimFading(DlsimFadingConfig(**FLAGSHIP_CFG), device=dev)
+            W, ev = sim.wiener(24.0), sim.err_var(24.0)
+            gen = torch.Generator(device=dev).manual_seed(11)
+            sim.step(gen, n0, W, ev)                  # settle the allocator
+            torch.cuda.synchronize()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            res = [sim.step(gen, n0, W, ev).rounds[0] for _ in range(N_AB)]
+            torch.cuda.synchronize()
+            step = (time.perf_counter() - t0) / N_AB * 1e3
+            dci = spent[0] / N_AB * 1e3
+            out[mode]["step_ms"].append(step)
+            out[mode]["dci_ms"].append(dci)
+            flags.append(torch.stack([torch.cat([r.ok, r.dci_ok])
+                                      for r in res]).cpu())
+            print(f"47 flagship 24 dB, the Viterbi's {mode} version: "
+                  f"{step:.2f} ms a synced step, dci_blind_decode {dci:.2f} "
+                  f"ms of it ({dci / step:.1%}); TB errors "
+                  f"{int((~torch.stack([r.ok for r in res])).sum())}, DCI "
+                  f"misses {int((~torch.stack([r.dci_ok for r in res])).sum())}"
+                  f" over {N_AB} x {BATCH}", flush=True)
+    finally:
+        dlsim_mod.dci_blind_decode = inner
+        pdcch_mod.viterbi_decode = viterbi_decode
+    if any(not torch.equal(f, flags[0]) for f in flags):
+        raise AssertionError("47 flagship: the kernel's and the plain "
+                             "version's turns differ in their TB or DCI "
+                             "flags")
+    return out
+
+
+def viterbi_on_card(dev, gen, timings, ranks_launched: dict) -> dict:
+    """Phase 47: the Viterbi kernel at every (R, K) the paths of phases 4-46
+    launched (the ranks' of phase 44 added), against its plain version on
+    the card, torch.equal, on Gaussian LLRs and on integer LLRs in [-2, 2]
+    that force ties; its time by CUDA events over back-to-back calls (and
+    of one row alone), the plain version's, the bound and the latency
+    floor; queued for phase 16's device time. Every phase of
+    VITERBI_PHASES, and no other, must have launched it. Then the flagship
+    A/B of _flagship_dci_ab. Returns {"rows": [((R, K), row)], "by_phase":
+    {phase: {(R, K): launches}}, "flagship": the A/B}."""
+    _gather_viterbi()
+    by_phase = {n: dict(c) for n, c in VITERBI_LAUNCHES.items()
+                if c and n != 47}
+    for (name, key), n in ranks_launched.items():
+        if name == "viterbi":
+            into = by_phase.setdefault(44, {})
+            into[key] = into.get(key, 0) + n
+    print("47 Viterbi launches by phase: " + ", ".join(
+        f"{n}: {sum(c.values())}" for n, c in sorted(by_phase.items())),
+        flush=True)
+    if set(by_phase) != VITERBI_PHASES:
+        raise AssertionError(f"47: the Viterbi launched in phases "
+                             f"{sorted(by_phase)}, expected "
+                             f"{sorted(VITERBI_PHASES)}")
+    shapes = _sum_shapes(*by_phase.values())
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    rows = []
+    for R, K in sorted(shapes):
+        gauss = 3.0 * torch.randn(R, 3, K, generator=gen, device=dev)
+        ties = torch.randint(-2, 3, (R, 3, K), generator=gen,
+                             device=dev).to(torch.float32)
+        err = 0
+        for what, x in (("Gaussian", gauss), ("integer", ties)):
+            got, want = viterbi_decode(x, K), viterbi_decode_ref(x, K)
+            torch.cuda.synchronize()
+            err = max(err, int((got.int() - want.int()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"viterbi {R} x 3 x {K} {what}: "
+                    f"{int((got != want).sum())} decisions differ from the "
+                    "plain version's")
+        kernel = functools.partial(viterbi_decode, gauss, K)
+        ms = _time_ms(kernel, 20)
+        one = _time_ms(functools.partial(viterbi_decode, gauss[:1], K), 20)
+        plain = _time_ms(lambda: viterbi_decode_ref(gauss, K), 2)
+        bound = _viterbi_bound(R, K, 3, sm_mhz)
+        print(f"viterbi {R} x 3 x {K} (T = {3 * K}; {shapes[R, K]} "
+              f"launches on the paths): equal to the plain version on "
+              f"Gaussian and integer LLRs; kernel {ms:.4f} ms, one row "
+              f"{one:.4f} ms, plain {plain:.3f} ms, bound "
+              f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), latency "
+              f"floor {bound['latency_floor_ms']:.5f} ms at {sm_mhz:.0f} "
+              "MHz", flush=True)
+        row = {"shape": f"{R} x 3 x {K}", "max_abs_err": err, "ms": ms,
+               "one_row_ms": one, "plain_ms": plain, **bound}
+        timings.append((f"viterbi {R} x 3 x {K}", kernel, "viterbi_kernel",
+                        row))
+        rows.append(((R, K), row))
+    return {"rows": rows, "by_phase": by_phase,
+            "flagship": _flagship_dci_ab(dev)}
+
+
 def capstone_tti_steps(cap_sim, pf_sim) -> list:
     """Phase 16's (label, fn) of one 100 PRB capstone DL PHY TTI (the
     dedicated 1A subframe: transmit, the UE's noise, the blind receive
@@ -3944,8 +4159,11 @@ def capstone_tti_steps(cap_sim, pf_sim) -> list:
 def _phase(n: int, title: str, fn, *args):
     """Run one phase, with its number, title and seconds printed."""
     print(f"== phase {n}: {title}", flush=True)
+    _gather_viterbi()
+    _GATHERED["phase"] = n
     t0 = time.perf_counter()
     out = fn(*args)
+    _gather_viterbi()
     print(f"== phase {n} done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return out
@@ -3955,6 +4173,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; the port's check needs one")
     dev = "cuda"
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -3973,6 +4192,8 @@ def main() -> None:
                       r"mrc_llr_kernel|demap_llr_kernel)I((?:Li\d+E)+)", line)
         if m:
             name = f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
+        elif "viterbi_kernel" in line:
+            name = "viterbi_kernel"
         elif ("registers" in line or "spill" in line) and name:
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -4064,6 +4285,8 @@ def main() -> None:
                     held_keys)
     camp = _phase(46, "the campaign programs", campaigns, dev, gen, timings,
                   held_keys)
+    vit = _phase(47, "the Viterbi kernel at every shape the paths launched",
+                 viterbi_on_card, dev, gen, timings, par["launched"])
     obs = _phase(42, "observability on the flagship", observability_flagship,
                  dev)
     cap_steps = capstone_tti_steps(cap_sim, pf_sim)
@@ -4215,14 +4438,32 @@ def main() -> None:
             row_of[name, key] = rows[-1]
             own.add((name, key))
         for key, n in res["launched"].items():
-            if key not in own:
+            if key not in own and key[0] != "viterbi":
                 row = row_of[key]
                 row["launches"] += n
                 by_phase = row.setdefault("launches_by_phase", {})
                 by_phase[phase] = by_phase.get(phase, 0) + n
+    # This slice's rows: the Viterbi kernel at each (R, K) the paths
+    # launched, with its launches by phase; at phase 5's shape those a
+    # flagship step and phase 47's A/B of the flagship's DCI decode.
+    for (R, K), row in vit["rows"]:
+        by_phase = {n: c[R, K] for n, c in sorted(vit["by_phase"].items())
+                    if (R, K) in c}
+        extra = {}
+        if 5 in by_phase:
+            extra = {"launches_per_step": by_phase[5] / flagship_steps,
+                     "flagship_ab": vit["flagship"]}
+        rows.append(dict(
+            name="viterbi", route="cuda",
+            source="openair4g_tpu_torch/csrc/viterbi.cu",
+            replaces="openair4g_tpu/ops/convcode.py:110",
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
+            **extra, **row, share=row["bound_ms"] / row["device_ms"]))
     rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("turbo_half_iter.cu", "mrc_llr.cu")
+SOURCES = ("turbo_half_iter.cu", "mrc_llr.cu", "viterbi.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +50,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.demap_llr_launch.restype = i
     lib.turbo_half_iter_v1_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.turbo_half_iter_v1_launch.restype = i
+    lib.viterbi_launch.argtypes = [p, p, i, i, i, p]
+    lib.viterbi_launch.restype = i
     lib.empty_launch.argtypes = [p]
     lib.empty_launch.restype = i
 

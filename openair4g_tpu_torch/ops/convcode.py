@@ -3,6 +3,10 @@
 length 7, generators {0133, 0171, 0165}. The decoder runs the 64-state
 trellis over n_wrap copies of the frame and keeps the middle copy's
 traceback (circular decoding, no initial-state bias).
+
+`viterbi_decode` takes the hand-written kernel (csrc/viterbi.cu, one warp a
+row) for a CUDA tensor and its plain version `viterbi_decode_ref` for a CPU
+tensor; the two are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -11,10 +15,14 @@ import functools
 import numpy as np
 import torch
 
-from ..device import device_plan
+from .. import kernels
+from ..device import count_launch, device_plan
 
 _GENS = (0o133, 0o171, 0o165)
 N_STATES = 64
+# The kernel's longest trellis, n_wrap * K (kMaxT in csrc/viterbi.cu): a
+# row's choices and inputs take 20 bytes a step of shared memory.
+MAX_T = 2048
 
 
 def _parity(x: np.ndarray) -> np.ndarray:
@@ -97,10 +105,11 @@ def _signs(bits: np.ndarray) -> np.ndarray:
     return 1.0 - 2.0 * bits.astype(np.float32)
 
 
-def viterbi_decode(llrs, K: int, n_wrap: int = 3):
-    """Circular Viterbi decode. llrs [B, 3, K] float (positive <=> bit 0)
-    -> hard decisions [B, K] int8. Ties pick the lower predecessor and the
-    lowest final state, as the reference's argmax does."""
+def viterbi_decode_ref(llrs, K: int, n_wrap: int = 3):
+    """Circular Viterbi decode, the plain version of csrc/viterbi.cu.
+    llrs [B, 3, K] float (positive <=> bit 0) -> hard decisions [B, K]
+    int8. Ties pick the lower predecessor and the lowest final state, as
+    the reference's argmax does."""
     B = llrs.shape[0]
     dev = llrs.device
     sign = device_plan(_pred_outputs(), dev, _signs)           # [64, 2, 3]
@@ -125,3 +134,39 @@ def viterbi_decode(llrs, K: int, n_wrap: int = 3):
         state = 2 * (state & 31) + j
     mid = (n_wrap // 2) * K
     return us[mid:mid + K].T
+
+
+def _check_kernel_args(llrs, K: int, n_wrap: int) -> None:
+    """What the kernel takes: float32 llrs [R, 3, K], 1 <= n_wrap * K <=
+    MAX_T. Raises ValueError or TypeError otherwise."""
+    if llrs.dim() != 3 or llrs.shape[1] != 3 or llrs.shape[2] != K:
+        raise ValueError(f"viterbi_decode: llrs {tuple(llrs.shape)} must be "
+                         f"[R, 3, K={K}]")
+    if llrs.dtype != torch.float32:
+        raise TypeError(f"viterbi_decode: float32 llrs required, not "
+                        f"{llrs.dtype}")
+    if K < 1 or n_wrap < 1 or n_wrap * K > MAX_T:
+        raise ValueError(f"viterbi_decode: n_wrap * K = {n_wrap} * {K} must "
+                         f"be in [1, {MAX_T}] (the kernel's shared memory)")
+
+
+def viterbi_decode(llrs, K: int, n_wrap: int = 3):
+    """Circular Viterbi decode: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor. llrs [R, 3, K] (positive <=> bit 0) -> hard
+    decisions [R, K] int8; R = 0 returns at once."""
+    if llrs.shape[0] == 0:
+        return torch.empty(0, K, dtype=torch.int8, device=llrs.device)
+    if llrs.device.type == "cpu":
+        return viterbi_decode_ref(llrs, K, n_wrap)
+    if llrs.device.type != "cuda":
+        raise ValueError(f"viterbi_decode: llrs on {llrs.device}; CUDA or CPU "
+                         "required")
+    _check_kernel_args(llrs, K, n_wrap)
+    llrs = llrs.contiguous()
+    R = llrs.shape[0]
+    out = torch.empty(R, K, dtype=torch.int8, device=llrs.device)
+    err = kernels.load().viterbi_launch(llrs.data_ptr(), out.data_ptr(), R,
+                                        K, n_wrap, kernels.stream_of(llrs))
+    kernels.check(err, "viterbi")
+    count_launch("viterbi", (R, K))
+    return out

@@ -1,10 +1,10 @@
 """Phase split and device busy share of one step of each multi-antenna
 path, of the SISO 1x2 HARQ path, of the SISO flagship, of the full-width
-uplink, of the full chain at the flagship load and of the full-PHY system
-emulator at full width on a GPU.
+uplink, of the full chain at the flagship load, of the full-PHY system
+emulator at full width and of a capstone DL PHY TTI on a GPU.
 
     python3 -m openair4g_tpu_torch.sim.phase_split [--out DIR]
-        [--only tm2|tm3|dd|flagship|ul|full|oaisim]
+        [--only tm2|tm3|dd|flagship|ul|full|oaisim|capstone ...]
 
 For each of the flagship (100 PRB, MCS 26, EVA, 1 RX, joint estimation,
 round 0, 8 turbo iterations, batch 128, 24 dB), TM2 (50 PRB, MCS 25, EVA
@@ -17,13 +17,18 @@ CQI bits, RI and 2 ACK bits, 16 dB), and the full chain (FullChainSim
 `fullsim_main -B 100 -m 26 -g EVA -b 128` runs), and the full-PHY
 Oaisim (3 eNBs 500 m apart, 128 static UEs, 100 PRB, MCS 16, EPA, 4 HARQ
 rounds, 6 turbo iterations, full buffer, round robin, TX power 60 dB; a
-step is a frame of 10 TTIs, each reported a TTI): the unwrapped step
+step is a frame of 10 TTIs, each reported a TTI), and the capstone at
+100 PRB (FullStackSim's attach ladder at 12 dB, seed 0, then a step is one
+DL PHY TTI of the dedicated 1A subframe: transmit, the UE's noise, the
+blind receive with the SI-RNTI and the C-RNTI searches, the PDSCH
+decode): the unwrapped step
 time over 5 steps (10 for the flagship, 2 frames for Oaisim); then the
 same steps with each
 phase function wrapped in torch.cuda.synchronize()-bracketed host
 timers (the names the sim modules imported are patched, so the sync
 adds to the total and nested phases are reported inside their parent);
-then
+the Viterbi decoder (the kernel on a card) is reported inside the DCI
+blind decode and the CQI decode that call it; then
 torch.profiler over 3 unwrapped steps for the device time and busy
 share. With the dd path, the time-domain FIR channel of one round at the
 same shape against the per-subcarrier multiply, by CUDA events. With
@@ -41,10 +46,12 @@ import time
 import torch
 
 from ..ops import turbo as turbo_mod
-from ..phy import ofdm, pdsch
+from ..ops import uci
+from ..phy import ofdm, pdcch, pdsch
 from ..ops.uci import UciConfig
 from ..sched import enb_tx, ue_rx
-from . import channels, dlsim, dlsim_mimo, dlsim_sm, fullsim, oaisim, ulsim
+from . import (capstone, channels, dlsim, dlsim_mimo, dlsim_sm, fullsim,
+               oaisim, ulsim)
 
 ACC: dict = collections.defaultdict(float)
 CNT: collections.Counter = collections.Counter()
@@ -79,6 +86,7 @@ def patch() -> list:
     p(dlsim_mimo.SfbcPdcch, "tx", "PDCCH tx")
     p(dlsim_mimo.SfbcPdcch, "rx", "PDCCH rx (combine, demap, blind decode)")
     p(dlsim_mimo, "dci_blind_decode", "  dci_blind_decode")
+    p(pdcch, "viterbi_decode", "    viterbi_decode (kernel; DCI)")
     p(ofdm, "ofdm_modulate", "OFDM modulate")
     p(ofdm, "ofdm_demodulate", "OFDM demodulate")
     for m in (dlsim_mimo, dlsim_sm):
@@ -112,6 +120,7 @@ def patch() -> list:
     p(ulsim, "demap_llr", "  demap_llr (plain)")
     p(ulsim.Ulsim, "_uci_errors", "UCI decode and count (round 0)")
     p(ulsim, "cqi_decode", "  cqi_decode (CC rate dematch, Viterbi)")
+    p(uci, "viterbi_decode", "    viterbi_decode (kernel; CQI)")
     p(enb_tx.EnbTx, "data_subframe", "EnbTx.data_subframe")
     p(fullsim, "apply_channel_bins", "channel on the grid (fullsim)")
     p(fullsim.FullChainSim, "_ue_round", "UE round (FullChainSim)")
@@ -122,6 +131,9 @@ def patch() -> list:
     p(oaisim.Oaisim, "_couple", "coupling of every eNB to every UE (oaisim)")
     p(oaisim, "estimate_channel", "estimate_channel (oaisim, an eNB's)")
     p(oaisim, "demap_llr", "demap_llr (plain; oaisim, an eNB's)")
+    p(capstone.DlAir, "transmit", "DL transmit, UE noise, OFDM (capstone)")
+    p(capstone.DlAir, "receive", "DL blind receive (capstone)")
+    p(capstone, "dci_blind_decode", "  dci_blind_decode")
     return saved
 
 
@@ -253,6 +265,47 @@ def run_oaisim(n_frames: int = 2, out: str | None = None) -> None:
     _print_profile("oaisim", events, 30, out)
 
 
+def run_capstone(n_tti: int = 10, out: str | None = None) -> None:
+    """run() for one capstone DL PHY TTI at 100 PRB, after the attach
+    ladder that gives the UE its C-RNTI."""
+    sim = capstone.FullStackSim(capstone.CapstoneConfig(n_rb=100),
+                                device="cuda")
+    sim.run()
+    dl, crnti, pdu = sim.dl, sim.ue.crnti, bytes(range(64))
+
+    def tti():
+        rgrid = dl.transmit(2, ("ded", crnti, pdu))
+        return dl.receive(rgrid, 2, [capstone.SI_RNTI], crnti)
+
+    if tti()["pdsch"] is None:
+        raise SystemExit("phase_split: the capstone DL TTI lost its PDSCH")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_tti):
+        tti()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) / n_tti
+    ACC.clear()
+    CNT.clear()
+    saved = patch()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n_tti):
+            tti()
+        torch.cuda.synchronize()
+        synced = (time.perf_counter() - t0) / n_tti
+    finally:
+        unpatch(saved)
+    print(f"== capstone 100 PRB DL PHY TTI: unwrapped {plain * 1e3:.1f} ms, "
+          f"synced {synced * 1e3:.1f} ms")
+    _print_split(n_tti, synced, "TTI")
+    events, dev_us, wall = profile_steps(tti)
+    print(f"  profiler: {dev_us / 3 / 1e3:.2f} ms device time a TTI, "
+          f"{wall * 1e3:.1f} ms a profiled TTI; busy "
+          f"{dev_us / 3 / 1e6 / plain * 100:.1f} % of the unwrapped TTI")
+    _print_profile("capstone", events, 3, out)
+
+
 def _event_ms(fn, n: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
@@ -298,30 +351,33 @@ def fir_cost(sim) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler tables")
-    ap.add_argument("--only", choices=("tm2", "tm3", "dd", "flagship", "ul",
-                                       "full", "oaisim"),
-                    help="run one path (default: all)")
+    ap.add_argument("--only", action="append",
+                    choices=("tm2", "tm3", "dd", "flagship", "ul", "full",
+                             "oaisim", "capstone"),
+                    help="run this path (repeat for more; default: all)")
     args = ap.parse_args()
+    only = set(args.only or ("tm2", "tm3", "dd", "flagship", "ul", "full",
+                             "oaisim", "capstone"))
     if not torch.cuda.is_available():
         raise SystemExit("phase_split: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    if args.only in (None, "flagship"):
+    if "flagship" in only:
         sim = dlsim.DlsimFading(dlsim.DlsimFadingConfig(
             mcs=26, n_rb=100, channel="EVA", n_rx=1, n_harq_rounds=1,
             batch=128, est_mode="joint", n_turbo_iter=8), "cuda")
         run("flagship", sim, 24.0, (sim.wiener(24.0), sim.err_var(24.0)),
             n_steps=10, out=args.out)
-    if args.only in (None, "tm2"):
+    if "tm2" in only:
         sim = dlsim_mimo.DlsimTxDiv(dlsim_mimo.DlsimTxDivConfig(
             mcs=25, n_rb=50, n_rx=2, channel="EVA", batch=128), "cuda")
         run("TM2", sim, 14.0, sim.wiener(14.0), out=args.out)
-    if args.only in (None, "tm3"):
+    if "tm3" in only:
         sim = dlsim_sm.DlsimSm(dlsim_sm.DlsimSmConfig(
             tm=3, mcs=26, mcs2=26, n_rb=100, n_rx=2, batch=64), "cuda")
         run("TM3", sim, 40.0, sim.wiener(40.0), out=args.out)
-    if args.only in (None, "dd"):
+    if "dd" in only:
         sim = dlsim.DlsimFading(dlsim.DlsimFadingConfig(
             mcs=26, n_rb=100, channel="EVA", n_rx=2, est_mode="dd",
             n_pdcch_symbols=2, n_harq_rounds=4, snr_convention="dlsim",
@@ -330,20 +386,22 @@ def main() -> None:
         run("dd_1x2_harq", sim, snr, (sim.wiener(snr), sim.err_var(snr)),
             out=args.out)
         fir_cost(sim)
-    if args.only in (None, "ul"):
+    if "ul" in only:
         sim = ulsim.Ulsim(ulsim.UlsimConfig(
             mcs=20, n_rb=100, n_rb_alloc=100, channel="EVA",
             n_harq_rounds=4, batch=128,
             uci=UciConfig(o_cqi=30, o_ri=1, o_ack=2)), "cuda")
         run("uplink", sim, 16.0, (sim.wiener(16.0),), out=args.out)
-    if args.only in (None, "full"):
+    if "full" in only:
         sim = fullsim.FullChainSim(fullsim.FullsimConfig(
             n_rb=100, mcs=26, channel="EVA", n_harq_rounds=4, batch=128),
             "cuda")
         run("fullsim", sim, 22.0, (sim.ue.make_wiener(10.0 ** -2.2),),
             out=args.out)
-    if args.only in (None, "oaisim"):
+    if "oaisim" in only:
         run_oaisim(out=args.out)
+    if "capstone" in only:
+        run_capstone(out=args.out)
 
 
 if __name__ == "__main__":
