@@ -224,21 +224,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      units) and CSV header plus device and seconds; a second run of each
      program skips every configuration; then every (kernel, shape) they
      launched against its plain version;
- 47. the Viterbi kernel (csrc/viterbi.cu, run before 42): its launches on
-     the paths by phase and (R, K) shape, gathered whenever the counters
-     are reset and at each phase's start and end (the ranks' of phase 44
-     added); every phase whose paths decode a DCI, a PBCH or a CQI report
-     of 12 bits or more must have launched it, and no other. At every
-     shape, the kernel against its plain version (viterbi_decode_ref) on
-     the card, torch.equal, on Gaussian LLRs and on integer LLRs in [-2,
-     2] that force ties; the kernel's time by CUDA events over back-to-
-     back calls and one row's alone, the plain version's, the bound from
-     bytes and operations and the latency floor of a row's 2 T dependent
-     steps. Then the flagship step (phase 5's configuration, 24 dB) with
-     the synced dci_blind_decode timed, with the kernel and with the
-     plain version called directly, in turns (kernel, plain, plain,
-     kernel), each a fresh sim on one seed: the turns' TB and DCI flags
-     must be equal;
+ 47. the Viterbi kernel (csrc/viterbi.cu, run before 42), its two entries:
+     [R, 3, K] (the PBCH, the CQI) and the DCI blind search (one launch a
+     dci_blind_decode, the candidates' de-rate-matching in its load
+     phase). Their launches on the paths by phase and shape, gathered
+     whenever the counters are reset and at each phase's start and end
+     (the ranks' of phase 44 added); every phase whose paths decode a DCI,
+     a PBCH or a CQI report of 12 bits or more must have launched one of
+     them, and no other; the DCI paths the search. The fold-order probe:
+     the search's load phase against torch's CUDA fold of 1-8
+     repetitions, bit for bit, on values that show the order of the adds.
+     The search at every (B, W, K, candidate set) against its plain
+     version (the candidate loop of cc_rate_match_rx into
+     viterbi_decode_ref) and its load phase against the loop, torch.equal,
+     on Gaussian LLRs and on integer LLRs in [-2, 2] that force ties; the
+     [R, 3, K] entry likewise at every (R, K) it launched or a search
+     decodes (the shapes the DCI decode gave it before the search
+     existed); each entry's time by CUDA events over back-to-back calls
+     and one row's (one TB row's) alone, the plain version's, the bound
+     from bytes and operations and the latency floor. Then the A/B of the
+     DCI blind decode, synced, the search against the plain loop in turns
+     (fused, plain, plain, fused) on the flagship step (phase 5's
+     configuration, 24 dB), a full-chain step at the flagship load (4
+     searches) and a 100 PRB capstone DL PHY TTI: each fused call must
+     launch the search once and nothing else and de-rate-match nothing on
+     the host, and the turns' flags must be equal;
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
@@ -278,10 +288,11 @@ the flagship step with the profiler on and off; each (kernel, shape) of
 phases 44d, 45 and 46 with the launches at it there, launches_by_phase
 {phase: n}, and their launches at phase 3's flagship shapes added to those
 rows; v2 at the bench's turbo shape with its launches a decode of each
-mode and each decode's device time; the Viterbi at each (R, K) with its
-launches by phase, the latency floor and one row's time, and at phase 5's
-shape its launches a flagship step and the A/B of phase 47), the total
-seconds,
+mode and each decode's device time; the Viterbi's [R, 3, K] entry at each
+(R, K) and its search entry at each (B, W, K, number of candidates), with
+their launches by phase, the latency floor and one row's time, and at
+phase 5's shape the search's launches a flagship step and the A/B of
+phase 47), the total seconds,
 then the device JSON line. It needs a CUDA device and imports
 nothing of JAX.
 """
@@ -310,8 +321,12 @@ from openair4g_tpu_torch.epc import crypto
 from openair4g_tpu_torch.ops.equalize_llr import (demap_llr_fused,
                                                   demap_llr_fused_ref,
                                                   mrc_llr, mrc_llr_ref)
-from openair4g_tpu_torch.ops.convcode import (viterbi_decode,
-                                              viterbi_decode_ref)
+from openair4g_tpu_torch.ops import convcode as convcode_mod
+from openair4g_tpu_torch.ops.convcode import (search_llrs, search_llrs_ref,
+                                              viterbi_decode,
+                                              viterbi_decode_ref,
+                                              viterbi_search,
+                                              viterbi_search_ref)
 from openair4g_tpu_torch.ops.turbo_cuda import (TURBO_OPS_PER_POS,
                                                 half_iteration,
                                                 half_iteration_prepped,
@@ -324,7 +339,7 @@ from openair4g_tpu_torch.phy.control_region import make_control_region_map
 from openair4g_tpu_torch.phy.dci_formats import n_rbg, pack_dci_format1
 from openair4g_tpu_torch.phy.ofdm import ofdm_demodulate, ofdm_modulate
 from openair4g_tpu_torch.phy import pdcch as pdcch_mod
-from openair4g_tpu_torch.phy.pdcch import ue_search_candidates
+from openair4g_tpu_torch.phy.pdcch import BITS_PER_CCE, ue_search_candidates
 from openair4g_tpu_torch.phy.pdsch import DlschCodec
 from openair4g_tpu_torch.phy.resource_grid import (extract_data_res,
                                                    fill_grid, make_grid_map)
@@ -337,6 +352,7 @@ from openair4g_tpu_torch.sched import (CellConfig, EnbRx, EnbTx, UeRx, UeTx,
                                        UeUlConfig)
 from openair4g_tpu_torch.sim import capstone as capstone_mod
 from openair4g_tpu_torch.sim import dlsim as dlsim_mod
+from openair4g_tpu_torch.sim import fullsim as fullsim_mod
 from openair4g_tpu_torch.sim.capstone import (SI_RNTI, CapstoneConfig,
                                               FullStackSim)
 from openair4g_tpu_torch.sim.capstone_multiue import (HandoverPhySim,
@@ -397,11 +413,14 @@ TURBO_SCRATCH_MAX = 40e6
 TURBO_V1_SCRATCH_MAX = 45e6
 
 
-# The Viterbi kernel's launches on the paths, {phase: {(R, K): launches}}.
-# Every DCI, PBCH and CQI decode goes through it and the phases reset the
-# counters many times, so its launches are gathered whenever they are
-# reset (reset_counts) and at each phase's start and end; phase 47 holds
-# the kernel at every shape gathered.
+# The Viterbi kernel's two entries: [R, 3, K] (the PBCH, the CQI) and the
+# DCI blind search.
+VITERBI_NAMES = ("viterbi", "viterbi_search")
+# Their launches on the paths, {phase: {(name, launch key): launches}}.
+# Every DCI, PBCH and CQI decode goes through one of them and the phases
+# reset the counters many times, so their launches are gathered whenever
+# they are reset (reset_counts) and at each phase's start and end; phase
+# 47 holds both entries at every shape gathered.
 VITERBI_LAUNCHES: dict = {}
 _GATHERED = {"phase": None, "seen": {}}
 
@@ -409,8 +428,8 @@ _GATHERED = {"phase": None, "seen": {}}
 def _gather_viterbi() -> None:
     """Add the Viterbi launches since the last gathering to the current
     phase's."""
-    now = {key: n for (name, key), n in launch_shapes().items()
-           if name == "viterbi"}
+    now = {(name, key): n for (name, key), n in launch_shapes().items()
+           if name in VITERBI_NAMES}
     into = VITERBI_LAUNCHES.setdefault(_GATHERED["phase"], {})
     for key, n in now.items():
         new = n - _GATHERED["seen"].get(key, 0)
@@ -820,7 +839,7 @@ def flagship(dev) -> tuple:
     if errs == trials:
         raise AssertionError("flagship at 24 dB decodes no TB")
     if min(counts["turbo_half_iter"], counts["mrc_llr"],
-           counts["viterbi"]) == 0:
+           counts["viterbi_search"]) == 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     return counts, 2 + n_rep       # steps: 26 dB, settle, timed
 
@@ -1034,7 +1053,7 @@ def tm2_anchor(dev) -> int:
     if sim.dci_miss:
         raise AssertionError(f"TM2: {sim.dci_miss} DCI misses at 15 dB")
     if min(counts["demap_llr"], counts["turbo_half_iter"],
-           counts["viterbi"]) == 0:
+           counts["viterbi_search"]) == 0:
         raise AssertionError(f"a kernel of the TM2 path never launched: "
                              f"{counts}")
     return counts["demap_llr"]
@@ -1070,7 +1089,7 @@ def tm3_full_width(dev) -> int:
     if max(bler) > 0.2:
         raise AssertionError(f"TM3 codeword BLER {bler} above 0.2")
     if min(counts["demap_llr"], counts["turbo_half_iter"],
-           counts["viterbi"]) == 0:
+           counts["viterbi_search"]) == 0:
         raise AssertionError(f"a kernel of the TM3 path never launched: "
                              f"{counts}")
     return counts["demap_llr"]
@@ -1241,7 +1260,7 @@ def dd_full_width(dev) -> dict:
     if sim.dci_miss > 0.01 * reach[0]:
         raise AssertionError(f"dd 1x2: {sim.dci_miss} DCI misses")
     if min(counts["mrc_llr"], counts["turbo_half_iter"],
-           counts["viterbi"]) == 0:
+           counts["viterbi_search"]) == 0:
         raise AssertionError(f"a kernel of the dd 1x2 path never launched: "
                              f"{counts}")
     return counts, (sim, snr)
@@ -1624,10 +1643,10 @@ def _equal(name: str, cpu, gpu) -> None:
 
 def _no_kernel(what: str) -> None:
     """The control and sync paths run no hand-written kernel but the
-    Viterbi (phase 47 checks which phases launch it): their LLRs go
-    through the plain demap, as the reference's do."""
+    Viterbi's two entries (phase 47 checks which phases launch them): their
+    LLRs go through the plain demap, as the reference's do."""
     counts = launch_counts()
-    if any(n for name, n in counts.items() if name != "viterbi"):
+    if any(n for name, n in counts.items() if name not in VITERBI_NAMES):
         raise AssertionError(f"{what}: launches {counts}")
 
 
@@ -2349,7 +2368,7 @@ def check_kernels_launched(dev, gen, timings, launched: dict, held: list,
     done = {(name, key) for name, key, _ in held}
     out = []
     for name, key in sorted(launched, key=str):
-        if (name, key) in done or name == "viterbi":
+        if (name, key) in done or name in VITERBI_NAMES:
             continue
         label = where.get((name, key), "phases 29-31")
         if name == "mrc_llr":
@@ -2424,7 +2443,7 @@ def fullsim_full_width(dev) -> tuple:
         raise AssertionError(f"fullsim: {sim.dci_miss} DCI misses")
     if counts["mrc_llr"] != 2 * R * steps or counts["turbo_half_iter"] == 0 \
             or counts["demap_llr"] or counts["turbo_half_iter_v1"] \
-            or counts["viterbi"] == 0:
+            or counts["viterbi_search"] == 0:
         raise AssertionError(f"fullsim launches {counts}: mrc_llr must "
                              f"launch 2 x {R} rounds x {steps} steps")
     return (_sum_shapes(shapes_hi, shapes),
@@ -2533,7 +2552,7 @@ def closed_loops_full_width(dev) -> tuple:
     tdd_shapes = launch_shapes()
     counts = {k: v + launch_counts()[k] for k, v in counts.items()}
     if min(counts["turbo_half_iter"], counts["mrc_llr"],
-           counts["viterbi"]) == 0:
+           counts["viterbi_search"]) == 0:
         raise AssertionError(f"closed loops: launches {counts}")
     frame = _per_step(tdd_shapes, 1, "TddFrameSim frame at 12 dB")
     return _sum_shapes(shapes, tdd_shapes), {**frame, **per_step}
@@ -3037,9 +3056,12 @@ def _capstone_run(cfg: dict, dev, art: str | None = None):
 
 
 def _only_v2(shapes: dict, what: str) -> None:
-    """The capstones' PHY launches v2 and the Viterbi (its DCI searches and
-    PBCH decodes) and nothing else: the plain demap, as the reference's."""
-    if {k[0] for k in shapes} != {"turbo_half_iter", "viterbi"}:
+    """The capstones' PHY launches v2 and the Viterbi (the search entry for
+    its DCI searches, the [R, 3, K] entry for its PBCH decodes) and nothing
+    else: the plain demap, as the reference's."""
+    names = {k[0] for k in shapes}
+    if not {"turbo_half_iter", "viterbi_search"} <= names \
+            or not names <= {"turbo_half_iter", *VITERBI_NAMES}:
         raise AssertionError(f"{what}: launches {shapes}; v2 and the "
                              "Viterbi must launch and nothing else")
 
@@ -3265,7 +3287,7 @@ def check_kernels_capstone(dev, gen, timings, launched: dict) -> list:
     MCS that PF's CQIs picked). Returns [(kernel, launch key, row)]."""
     out = []
     for name, key in sorted(launched, key=str):
-        if name == "viterbi":         # held in phase 47
+        if name in VITERBI_NAMES:     # held in phase 47
             continue
         rows, N, W, U = key
         row = _hold_v2("capstone", rows, N, W, U, dev, gen, timings)
@@ -3704,7 +3726,7 @@ def _hold_each(launched: dict, held_keys: set, label: str, dev, gen,
     Viterbi's are held in phase 47. Returns [(kernel, key, row)]."""
     out = []
     for name, key in sorted(launched, key=str):
-        if (name, key) in held_keys or name == "viterbi":
+        if (name, key) in held_keys or name in VITERBI_NAMES:
             continue
         what = f"{label} x{launched[name, key]}"
         if name == "mrc_llr":
@@ -3766,7 +3788,7 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
         raise AssertionError(f"turbo cell launched {launched['turbo']}")
     kernels_of = {c: {name for name, _ in s} for c, s in launched.items()}
     if kernels_of["flagship"] != {"turbo_half_iter", "mrc_llr",
-                                  "viterbi"} or \
+                                  "viterbi_search"} or \
             kernels_of["awgn"] != {"turbo_half_iter"} or \
             kernels_of["front_end"]:
         raise AssertionError(f"the cells launched {kernels_of}")
@@ -3982,17 +4004,21 @@ def campaigns(dev, gen, timings, held_keys: set) -> dict:
 
 
 # Phases whose paths decode a DCI, a PBCH or a CQI report of 12 bits or
-# more, and so launch the Viterbi kernel; no other phase before 47 may.
+# more, and so launch one of the Viterbi's two entries; no other phase
+# before 47 may. The DCI paths among them must launch the search entry.
 VITERBI_PHASES = {4, 5, 8, 9, 10, 12, 13, 14, 15, 18, 19, 22, 25, 27, 29,
                   30, 31, 32, 39, 40, 41, 44, 45, 46}
+SEARCH_PHASES = {5, 9, 10, 13, 29, 31, 40, 41, 45}
 # Float32 operations of one row's trellis step: the 8 distinct branch
 # metrics (6 adds); for each of the 64 states two candidate adds, the
 # compare, the max and the normalising subtract; the max over the states.
 VITERBI_OPS_PER_STEP = 6 + 64 * 5 + 63
 # The least latency of one dependent step: a float32 add, 4 cycles.
 DEPENDENT_STEP_CYCLES = 4
-# Flagship steps timed a turn of phase 47's A/B.
+# Steps (TTIs for the capstone) timed a turn of phase 47's A/B.
 N_AB = 3
+# The fold-order probe: K = 43, so the circular buffer holds L = 129.
+PROBE_K, PROBE_L = 43, 129
 
 
 def _viterbi_bound(R: int, K: int, n_wrap: int, sm_mhz: float) -> dict:
@@ -4006,128 +4032,347 @@ def _viterbi_bound(R: int, K: int, n_wrap: int, sm_mhz: float) -> dict:
     return out
 
 
-def _flagship_dci_ab(dev) -> dict:
-    """The flagship step (phase 5's configuration, 24 dB) with dlsim's
-    dci_blind_decode timed between synchronizes, with the kernel and with
-    the plain version called directly (pdcch's viterbi_decode swapped for
-    viterbi_decode_ref), in turns: kernel, plain, plain, kernel. Each turn
-    is a fresh sim, one settling step and N_AB timed steps from one seed;
-    the turns' TB and DCI flags must be equal. Returns {mode: {"step_ms":
-    [ms a step, by turn], "dci_ms": [ms of the DCI decode a step]}}."""
-    n0 = 10.0 ** (-24.0 / 10.0)
-    inner = dlsim_mod.dci_blind_decode
-    spent = [0.0]
+def _search_bound(B: int, W: int, n_cand: int, K: int, sm_mhz: float) -> dict:
+    """The least time of a search of n_cand candidates over [B, W]: the
+    control region read once a row and the decisions written, and the same
+    ACS operations as a decode of its n_cand B rows; the latency floor of
+    one row."""
+    out = _bound(B * W * 4 + n_cand * B * K,
+                 n_cand * B * 3 * K * VITERBI_OPS_PER_STEP)
+    out["latency_floor_ms"] = 6 * K * DEPENDENT_STEP_CYCLES / (sm_mhz * 1e3)
+    return out
+
+
+def _fold_probe(dev) -> int:
+    """The search kernel's load phase against search_llrs_ref on the card
+    (torch's CUDA reduction folds the repetitions), bit for bit, where the
+    order of the adds shows: for 1 to 8 repetitions of the L = 129 circular
+    buffer, E a whole number of L and 5 short of it, 32 rows whose every
+    position holds 1, 2^24 and -2^24 at three of its repetitions (random
+    ones, in a random order) and zeros elsewhere, 32 Gaussian rows with
+    some -0.0. Returns the cases held."""
+    rng = np.random.default_rng(47)
+    big = float(2 ** 24)
+    cases = 0
+    for reps in range(1, 9):
+        for E in {reps * PROBE_L, reps * PROBE_L - 5} - {0, -5}:
+            W = E + BITS_PER_CCE
+            x = np.zeros((64, W), np.float32)
+            take = min(reps, 3)
+            which = np.argsort(rng.random((32, PROBE_L, reps)), -1)[..., :take]
+            vals = np.asarray([1.0, big, -big], np.float32)[
+                np.argsort(rng.random((32, PROBE_L, 3)), -1)[..., :take]]
+            rows = np.arange(32)[:, None, None]
+            pos = which * PROBE_L + np.arange(PROBE_L)[None, :, None]
+            keep = pos < E
+            x[np.broadcast_to(rows, pos.shape)[keep], pos[keep]] = vals[keep]
+            x[32:] = 3.0 * rng.standard_normal((32, W))
+            x[40, :9] = -0.0
+            cands = ((0, E), (BITS_PER_CCE, max(E - BITS_PER_CCE, 1)))
+            xd = torch.from_numpy(x).to(dev)
+            got = search_llrs(xd, PROBE_K, cands)
+            want = search_llrs_ref(xd, PROBE_K, cands)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                bad = int((got.view(torch.int32) != want.view(torch.int32))
+                          .sum())
+                raise AssertionError(
+                    f"47 fold probe: {reps} repetitions, E {E}: {bad} LLRs "
+                    "differ from torch's fold")
+            cases += 1
+    print(f"47 fold-order probe: the search's load phase equals "
+          f"search_llrs_ref bit for bit in {cases} cases (1-8 repetitions "
+          f"of L = {PROBE_L}, 1 / 2^24 / -2^24 in every order, Gaussian, "
+          "-0.0)", flush=True)
+    return cases
+
+
+def _hold_decode(R: int, K: int, dev, gen, sm_mhz: float, timings: list,
+                 what: str) -> dict:
+    """The [R, 3, K] entry against viterbi_decode_ref on the card,
+    torch.equal, on Gaussian and tie-forcing integer LLRs; its time by CUDA
+    events (and one row's), the plain version's, the bound; queued for
+    phase 16's device time. Returns its row."""
+    gauss = 3.0 * torch.randn(R, 3, K, generator=gen, device=dev)
+    ties = torch.randint(-2, 3, (R, 3, K), generator=gen,
+                         device=dev).to(torch.float32)
+    for kind, x in (("Gaussian", gauss), ("integer", ties)):
+        got, want = viterbi_decode(x, K), viterbi_decode_ref(x, K)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"viterbi {R} x 3 x {K} {kind}: {int((got != want).sum())} "
+                "decisions differ from the plain version's")
+    kernel = functools.partial(viterbi_decode, gauss, K)
+    ms = _time_ms(kernel, 20)
+    one = _time_ms(functools.partial(viterbi_decode, gauss[:1], K), 20)
+    plain = _time_ms(lambda: viterbi_decode_ref(gauss, K), 2)
+    bound = _viterbi_bound(R, K, 3, sm_mhz)
+    print(f"viterbi {R} x 3 x {K} (T = {3 * K}; {what}): equal to the "
+          f"plain version on Gaussian and integer LLRs; kernel {ms:.4f} ms, "
+          f"one row {one:.4f} ms, plain {plain:.3f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), latency floor "
+          f"{bound['latency_floor_ms']:.5f} ms at {sm_mhz:.0f} MHz",
+          flush=True)
+    row = {"shape": f"{R} x 3 x {K}", "max_abs_err": 0, "ms": ms,
+           "one_row_ms": one, "plain_ms": plain, **bound}
+    timings.append((f"viterbi {R} x 3 x {K}", kernel, "viterbi_kernel", row))
+    return row
+
+
+def _search_inputs(B: int, W: int, dev, gen) -> tuple:
+    return (3.0 * torch.randn(B, W, generator=gen, device=dev),
+            torch.randint(-2, 3, (B, W), generator=gen,
+                          device=dev).to(torch.float32))
+
+
+def _hold_search(key: tuple, dev, gen) -> None:
+    """The search entry at launch key (B, W, K, candidates) against
+    viterbi_search_ref on the card, and its load phase against
+    search_llrs_ref, torch.equal, on Gaussian and tie-forcing integer
+    LLRs."""
+    B, W, K, cands = key
+    for kind, x in zip(("Gaussian", "integer"),
+                       _search_inputs(B, W, dev, gen)):
+        got, want = viterbi_search(x, K, cands), viterbi_search_ref(x, K,
+                                                                    cands)
+        d, dw = search_llrs(x, K, cands), search_llrs_ref(x, K, cands)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"viterbi_search B {B} x {len(cands)} candidates K {K} "
+                f"{kind}: {int((got != want).sum())} decisions differ from "
+                "the plain version's")
+        if not torch.equal(d.view(torch.int32), dw.view(torch.int32)):
+            raise AssertionError(
+                f"viterbi_search B {B} x {len(cands)} candidates K {K} "
+                f"{kind}: the load phase differs from search_llrs_ref")
+
+
+def _time_search(key: tuple, dev, gen, sm_mhz: float, timings: list,
+                 what: str) -> dict:
+    """The search entry's time at launch key by CUDA events (and one TB
+    row's), the plain version's, the bound; queued for phase 16's device
+    time. Returns its row."""
+    B, W, K, cands = key
+    x, _ = _search_inputs(B, W, dev, gen)
+    kernel = functools.partial(viterbi_search, x, K, cands)
+    ms = _time_ms(kernel, 20)
+    one = _time_ms(functools.partial(viterbi_search, x[:1], K, cands), 20)
+    plain = _time_ms(lambda: viterbi_search_ref(x, K, cands), 2)
+    bound = _search_bound(B, W, len(cands), K, sm_mhz)
+    shape = f"{B} x {len(cands)} candidates x K {K} (W {W})"
+    print(f"viterbi_search {shape} ({what}): kernel {ms:.4f} ms, one TB row "
+          f"{one:.4f} ms, plain {plain:.3f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), latency floor "
+          f"{bound['latency_floor_ms']:.5f} ms", flush=True)
+    row = {"shape": shape, "max_abs_err": 0, "ms": ms, "one_row_ms": one,
+           "plain_ms": plain, **bound}
+    timings.append((f"viterbi_search {shape}", kernel,
+                    "viterbi_search_kernel", row))
+    return row
+
+
+def _ab_path(label: str, module, make, step, derate: list) -> dict:
+    """One path's A/B: `make()` a fresh state, `step(state)` one step (a
+    TTI) returning its flags; module.dci_blind_decode timed between
+    synchronizes, with the search entry ("fused") and with the plain loop
+    (pdcch's viterbi_search swapped for viterbi_search_ref), in turns
+    fused, plain, plain, fused: one settling step and N_AB timed ones from
+    one seed. A fused call must launch the search entry once and nothing
+    else, and de-rate-match no candidate on the host; a plain call launch
+    nothing. The turns' flags must be equal. Returns {mode: {"step_ms":
+    [..], "dci_ms": [..]}, "calls_per_step": n}."""
+    inner = module.dci_blind_decode
+    spent, calls, mode = [0.0], [0], [None]
 
     def timed(*args, **kwargs):
         torch.cuda.synchronize()
+        before, rm = launch_counts(), derate[0]
         t0 = time.perf_counter()
         out = inner(*args, **kwargs)
         torch.cuda.synchronize()
         spent[0] += time.perf_counter() - t0
+        calls[0] += 1
+        moved = {n: c - before[n] for n, c in launch_counts().items()
+                 if c != before[n]}
+        fused = mode[0] == "fused"
+        if moved != ({"viterbi_search": 1} if fused else {}) or \
+                derate[0] - rm != (0 if fused else len(args[3])):
+            raise AssertionError(
+                f"47 {label} {mode[0]}: a dci_blind_decode call launched "
+                f"{moved} and de-rate-matched {derate[0] - rm} candidates "
+                f"on the host ({len(args[3])} candidates)")
         return out
 
-    out = {mode: {"step_ms": [], "dci_ms": []} for mode in ("kernel",
-                                                            "plain")}
+    out = {m: {"step_ms": [], "dci_ms": []} for m in ("fused", "plain")}
     flags = []
-    dlsim_mod.dci_blind_decode = timed
+    module.dci_blind_decode = timed
     try:
-        for mode in ("kernel", "plain", "plain", "kernel"):
-            pdcch_mod.viterbi_decode = (viterbi_decode if mode == "kernel"
-                                        else viterbi_decode_ref)
-            sim = DlsimFading(DlsimFadingConfig(**FLAGSHIP_CFG), device=dev)
-            W, ev = sim.wiener(24.0), sim.err_var(24.0)
-            gen = torch.Generator(device=dev).manual_seed(11)
-            sim.step(gen, n0, W, ev)                  # settle the allocator
+        for m in ("fused", "plain", "plain", "fused"):
+            mode[0] = m
+            pdcch_mod.viterbi_search = (viterbi_search if m == "fused"
+                                        else viterbi_search_ref)
+            state = make()
+            step(state)                            # settle the allocator
             torch.cuda.synchronize()
-            spent[0] = 0.0
+            spent[0], calls[0] = 0.0, 0
             t0 = time.perf_counter()
-            res = [sim.step(gen, n0, W, ev).rounds[0] for _ in range(N_AB)]
+            got = [step(state) for _ in range(N_AB)]
             torch.cuda.synchronize()
-            step = (time.perf_counter() - t0) / N_AB * 1e3
+            ms = (time.perf_counter() - t0) / N_AB * 1e3
             dci = spent[0] / N_AB * 1e3
-            out[mode]["step_ms"].append(step)
-            out[mode]["dci_ms"].append(dci)
-            flags.append(torch.stack([torch.cat([r.ok, r.dci_ok])
-                                      for r in res]).cpu())
-            print(f"47 flagship 24 dB, the Viterbi's {mode} version: "
-                  f"{step:.2f} ms a synced step, dci_blind_decode {dci:.2f} "
-                  f"ms of it ({dci / step:.1%}); TB errors "
-                  f"{int((~torch.stack([r.ok for r in res])).sum())}, DCI "
-                  f"misses {int((~torch.stack([r.dci_ok for r in res])).sum())}"
-                  f" over {N_AB} x {BATCH}", flush=True)
+            out[m]["step_ms"].append(ms)
+            out[m]["dci_ms"].append(dci)
+            out["calls_per_step"] = calls[0] / N_AB
+            flags.append(got)
+            print(f"47 {label}, the {m} search: {ms:.2f} ms a synced step, "
+                  f"dci_blind_decode {dci:.3f} ms of it ({dci / ms:.1%}; "
+                  f"{calls[0] / N_AB:g} calls a step)", flush=True)
     finally:
-        dlsim_mod.dci_blind_decode = inner
-        pdcch_mod.viterbi_decode = viterbi_decode
-    if any(not torch.equal(f, flags[0]) for f in flags):
-        raise AssertionError("47 flagship: the kernel's and the plain "
-                             "version's turns differ in their TB or DCI "
-                             "flags")
+        module.dci_blind_decode = inner
+        pdcch_mod.viterbi_search = viterbi_search
+    same = all(all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                   for a, b in zip(f, flags[0])) for f in flags)
+    if not same:
+        raise AssertionError(f"47 {label}: the fused and the plain turns "
+                             "differ in their flags")
     return out
 
 
-def viterbi_on_card(dev, gen, timings, ranks_launched: dict) -> dict:
-    """Phase 47: the Viterbi kernel at every (R, K) the paths of phases 4-46
-    launched (the ranks' of phase 44 added), against its plain version on
-    the card, torch.equal, on Gaussian LLRs and on integer LLRs in [-2, 2]
-    that force ties; its time by CUDA events over back-to-back calls (and
-    of one row alone), the plain version's, the bound and the latency
-    floor; queued for phase 16's device time. Every phase of
-    VITERBI_PHASES, and no other, must have launched it. Then the flagship
-    A/B of _flagship_dci_ab. Returns {"rows": [((R, K), row)], "by_phase":
-    {phase: {(R, K): launches}}, "flagship": the A/B}."""
+def _dci_ab(dev, full_sim, cap_sim, pf_sim) -> dict:
+    """Phase 47's A/B of the DCI blind decode, fused search against the
+    plain loop, on the flagship step (phase 5's configuration, 24 dB;
+    flags: TB and DCI), a full-chain step at the flagship load (phase
+    29's sim and SNR, 4 searches a step; flags: errors, reached, DCI misses
+    and PHICH errors by round) and a 100 PRB capstone DL PHY TTI (phase
+    40's sim, the UE's noise from one seed; flags: what it received)."""
+    n0 = 10.0 ** (-24.0 / 10.0)
+
+    def flagship():
+        sim = DlsimFading(DlsimFadingConfig(**FLAGSHIP_CFG), device=dev)
+        return (sim, torch.Generator(device=dev).manual_seed(11),
+                sim.wiener(24.0), sim.err_var(24.0))
+
+    def flagship_step(state):
+        sim, g, W, ev = state
+        r = sim.step(g, n0, W, ev).rounds[0]
+        return torch.cat([r.ok, r.dci_ok]).cpu()
+
+    sim, snr = full_sim
+    n0_full = np.float32(10.0 ** (-snr / 10.0))
+    W_full = sim.ue.make_wiener(float(n0_full))
+
+    def full_step(g):
+        res = sim.step(g, n0_full, W_full)
+        return torch.cat([res.errs, res.reach, res.dci_miss.reshape(1),
+                          res.phich_err.reshape(1)]).cpu()
+
+    capstone_dl = capstone_tti_steps(cap_sim, pf_sim)[0][1]
+
+    def capstone_make():
+        cap_sim.dl.rng = np.random.default_rng(47)
+
+    def capstone_step(_):
+        got = capstone_dl()
+        return got["pdsch"], got["ul_grant"]
+
+    derate = [0]
+    inner_rm = convcode_mod.cc_rate_match_rx
+
+    def counted_rm(*args, **kwargs):
+        derate[0] += 1
+        return inner_rm(*args, **kwargs)
+
+    convcode_mod.cc_rate_match_rx = counted_rm
+    try:
+        return {
+            "flagship": _ab_path("flagship 24 dB", dlsim_mod, flagship,
+                                 flagship_step, derate),
+            "full chain": _ab_path(
+                f"full chain {snr} dB", fullsim_mod,
+                lambda: torch.Generator(device=dev).manual_seed(11),
+                full_step, derate),
+            "capstone": _ab_path("capstone 100 PRB DL PHY TTI", capstone_mod,
+                                 capstone_make, capstone_step, derate)}
+    finally:
+        convcode_mod.cc_rate_match_rx = inner_rm
+
+
+def viterbi_on_card(dev, gen, timings, ranks_launched: dict, full_sim,
+                    cap_sim, pf_sim) -> dict:
+    """Phase 47: the Viterbi's two entries at every shape the paths of
+    phases 4-46 launched (the ranks' of phase 44 added). Every phase of
+    VITERBI_PHASES, and no other, must have launched one of them, and
+    those of SEARCH_PHASES the search entry. The fold-order probe. The
+    search entry at every (B, W, K, candidate set) against its plain
+    version, timed once a (B, W, K, candidates); the [R, 3, K] entry at
+    every (R, K) it launched and every (n_cand B, K) the searches decode,
+    against its plain version, timed; then the A/B of _dci_ab. Returns
+    {"decode": [((R, K), row)], "search": [(group, keys, row)],
+    "by_phase": {phase: {(name, key): launches}}, "ab": the A/B}."""
     _gather_viterbi()
     by_phase = {n: dict(c) for n, c in VITERBI_LAUNCHES.items()
                 if c and n != 47}
     for (name, key), n in ranks_launched.items():
-        if name == "viterbi":
+        if name in VITERBI_NAMES:
             into = by_phase.setdefault(44, {})
-            into[key] = into.get(key, 0) + n
+            into[name, key] = into.get((name, key), 0) + n
+    phases_of = {name: sorted(p for p, c in by_phase.items()
+                              if any(k[0] == name for k in c))
+                 for name in VITERBI_NAMES}
     print("47 Viterbi launches by phase: " + ", ".join(
-        f"{n}: {sum(c.values())}" for n, c in sorted(by_phase.items())),
+        f"{n}: " + "/".join(str(sum(v for k, v in c.items() if k[0] == name))
+                            for name in VITERBI_NAMES)
+        for n, c in sorted(by_phase.items())) + " ([R, 3, K] / search); "
+        f"the search entry in phases {phases_of['viterbi_search']}",
         flush=True)
     if set(by_phase) != VITERBI_PHASES:
         raise AssertionError(f"47: the Viterbi launched in phases "
                              f"{sorted(by_phase)}, expected "
                              f"{sorted(VITERBI_PHASES)}")
-    shapes = _sum_shapes(*by_phase.values())
+    if not SEARCH_PHASES <= set(phases_of["viterbi_search"]):
+        raise AssertionError(f"47: the search entry launched in phases "
+                             f"{phases_of['viterbi_search']}, not in all of "
+                             f"{sorted(SEARCH_PHASES)}")
+    launched = _sum_shapes(*by_phase.values())
+    search_keys = sorted((key for name, key in launched
+                          if name == "viterbi_search"), key=str)
+    decode = {key: n for (name, key), n in launched.items()
+              if name == "viterbi"}
+    implied = {(len(cands) * B, K) for B, W, K, cands in search_keys}
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
-    rows = []
-    for R, K in sorted(shapes):
-        gauss = 3.0 * torch.randn(R, 3, K, generator=gen, device=dev)
-        ties = torch.randint(-2, 3, (R, 3, K), generator=gen,
-                             device=dev).to(torch.float32)
-        err = 0
-        for what, x in (("Gaussian", gauss), ("integer", ties)):
-            got, want = viterbi_decode(x, K), viterbi_decode_ref(x, K)
-            torch.cuda.synchronize()
-            err = max(err, int((got.int() - want.int()).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"viterbi {R} x 3 x {K} {what}: "
-                    f"{int((got != want).sum())} decisions differ from the "
-                    "plain version's")
-        kernel = functools.partial(viterbi_decode, gauss, K)
-        ms = _time_ms(kernel, 20)
-        one = _time_ms(functools.partial(viterbi_decode, gauss[:1], K), 20)
-        plain = _time_ms(lambda: viterbi_decode_ref(gauss, K), 2)
-        bound = _viterbi_bound(R, K, 3, sm_mhz)
-        print(f"viterbi {R} x 3 x {K} (T = {3 * K}; {shapes[R, K]} "
-              f"launches on the paths): equal to the plain version on "
-              f"Gaussian and integer LLRs; kernel {ms:.4f} ms, one row "
-              f"{one:.4f} ms, plain {plain:.3f} ms, bound "
-              f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), latency "
-              f"floor {bound['latency_floor_ms']:.5f} ms at {sm_mhz:.0f} "
-              "MHz", flush=True)
-        row = {"shape": f"{R} x 3 x {K}", "max_abs_err": err, "ms": ms,
-               "one_row_ms": one, "plain_ms": plain, **bound}
-        timings.append((f"viterbi {R} x 3 x {K}", kernel, "viterbi_kernel",
-                        row))
-        rows.append(((R, K), row))
-    return {"rows": rows, "by_phase": by_phase,
-            "flagship": _flagship_dci_ab(dev)}
+    probe = _fold_probe(dev)
+    decode_rows = []
+    for R, K in sorted(set(decode) | implied):
+        what = " and ".join(
+            ([f"{decode[R, K]} launches on the paths"] if (R, K) in decode
+             else []) + (["the rows of a search"] if (R, K) in implied
+                         else []))
+        decode_rows.append(((R, K), _hold_decode(R, K, dev, gen, sm_mhz,
+                                                 timings, what)))
+    groups: dict = {}
+    for key in search_keys:
+        B, W, K, cands = key
+        groups.setdefault((B, W, K, len(cands)), []).append(key)
+    search_rows = []
+    for group, keys in sorted(groups.items()):
+        for key in keys:
+            _hold_search(key, dev, gen)
+        n = sum(launched["viterbi_search", key] for key in keys)
+        row = _time_search(keys[0], dev, gen, sm_mhz, timings,
+                           f"{len(keys)} candidate sets, {n} launches on "
+                           "the paths; every set equal to the plain version "
+                           "on Gaussian and integer LLRs")
+        row["candidate_sets"] = len(keys)
+        row["fold_probe_cases"] = probe
+        search_rows.append((group, keys, row))
+    return {"decode": decode_rows, "search": search_rows,
+            "by_phase": by_phase, "ab": _dci_ab(dev, full_sim, cap_sim,
+                                                pf_sim)}
 
 
 def capstone_tti_steps(cap_sim, pf_sim) -> list:
@@ -4192,8 +4437,9 @@ def main() -> None:
                       r"mrc_llr_kernel|demap_llr_kernel)I((?:Li\d+E)+)", line)
         if m:
             name = f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
-        elif "viterbi_kernel" in line:
-            name = "viterbi_kernel"
+        elif "viterbi_kernel" in line or "viterbi_search_kernel" in line:
+            name = ("viterbi_search_kernel" if "viterbi_search_kernel" in line
+                    else "viterbi_kernel")
         elif ("registers" in line or "spill" in line) and name:
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -4286,7 +4532,8 @@ def main() -> None:
     camp = _phase(46, "the campaign programs", campaigns, dev, gen, timings,
                   held_keys)
     vit = _phase(47, "the Viterbi kernel at every shape the paths launched",
-                 viterbi_on_card, dev, gen, timings, par["launched"])
+                 viterbi_on_card, dev, gen, timings, par["launched"],
+                 full_sim, cap_sim, pf_sim)
     obs = _phase(42, "observability on the flagship", observability_flagship,
                  dev)
     cap_steps = capstone_tti_steps(cap_sim, pf_sim)
@@ -4438,25 +4685,41 @@ def main() -> None:
             row_of[name, key] = rows[-1]
             own.add((name, key))
         for key, n in res["launched"].items():
-            if key not in own and key[0] != "viterbi":
+            if key not in own and key[0] not in VITERBI_NAMES:
                 row = row_of[key]
                 row["launches"] += n
                 by_phase = row.setdefault("launches_by_phase", {})
                 by_phase[phase] = by_phase.get(phase, 0) + n
-    # This slice's rows: the Viterbi kernel at each (R, K) the paths
-    # launched, with its launches by phase; at phase 5's shape those a
-    # flagship step and phase 47's A/B of the flagship's DCI decode.
-    for (R, K), row in vit["rows"]:
-        by_phase = {n: c[R, K] for n, c in sorted(vit["by_phase"].items())
-                    if (R, K) in c}
-        extra = {}
-        if 5 in by_phase:
-            extra = {"launches_per_step": by_phase[5] / flagship_steps,
-                     "flagship_ab": vit["flagship"]}
+    # The Viterbi's rows: the [R, 3, K] entry at each (R, K) it launched or
+    # a search decodes, with its launches by phase; the search entry at
+    # each (B, W, K, candidates), with the launches of its candidate sets
+    # by phase, at phase 5's shape those a flagship step and the A/B of
+    # phase 47.
+    for (R, K), row in vit["decode"]:
+        by_phase = {n: c["viterbi", (R, K)]
+                    for n, c in sorted(vit["by_phase"].items())
+                    if ("viterbi", (R, K)) in c}
         rows.append(dict(
             name="viterbi", route="cuda",
             source="openair4g_tpu_torch/csrc/viterbi.cu",
             replaces="openair4g_tpu/ops/convcode.py:110",
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
+            **row, share=row["bound_ms"] / row["device_ms"]))
+    for group, keys, row in vit["search"]:
+        by_phase = {}
+        for n, c in sorted(vit["by_phase"].items()):
+            got = sum(c.get(("viterbi_search", key), 0) for key in keys)
+            if got:
+                by_phase[n] = got
+        extra = {}
+        if 5 in by_phase:
+            extra = {"launches_per_step": by_phase[5] / flagship_steps,
+                     "dci_ab": vit["ab"]}
+        rows.append(dict(
+            name="viterbi_search", route="cuda",
+            source="openair4g_tpu_torch/csrc/viterbi.cu",
+            replaces="openair4g_tpu/ops/convcode.py:110 and the candidate "
+                     "loop of openair4g_tpu/phy/pdcch.py:211",
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
     rows[0]["shape"] = "flagship 1,408 x 5,760"

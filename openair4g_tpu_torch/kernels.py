@@ -52,6 +52,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.turbo_half_iter_v1_launch.restype = i
     lib.viterbi_launch.argtypes = [p, p, i, i, i, p]
     lib.viterbi_launch.restype = i
+    lib.viterbi_search_launch.argtypes = [p, ll, i, p] + [i] * 5 + [p] * 3
+    lib.viterbi_search_launch.restype = i
     lib.empty_launch.argtypes = [p]
     lib.empty_launch.restype = i
 

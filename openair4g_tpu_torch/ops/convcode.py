@@ -4,25 +4,33 @@ length 7, generators {0133, 0171, 0165}. The decoder runs the 64-state
 trellis over n_wrap copies of the frame and keeps the middle copy's
 traceback (circular decoding, no initial-state bias).
 
-`viterbi_decode` takes the hand-written kernel (csrc/viterbi.cu, one warp a
+`viterbi_decode` takes the hand-written kernel (csrc/viterbi.cu, 8 lanes a
 row) for a CUDA tensor and its plain version `viterbi_decode_ref` for a CPU
-tensor; the two are equal bit for bit.
+tensor; the two are equal bit for bit. `viterbi_search` decodes a whole DCI
+blind search in one launch of the same kernel's search entry, each
+candidate's de-rate-matching in its load phase; its plain version
+`viterbi_search_ref` is the candidate loop of `cc_rate_match_rx` into
+`viterbi_decode_ref`.
 """
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..device import count_launch, device_plan
+from .rate_match import cc_rate_match_rx, make_cc_rate_match_maps
 
 _GENS = (0o133, 0o171, 0o165)
 N_STATES = 64
-# The kernel's longest trellis, n_wrap * K (kMaxT in csrc/viterbi.cu): a
-# row's choices and inputs take 20 bytes a step of shared memory.
+# The kernel's longest trellis, n_wrap * K (kMaxT in csrc/viterbi.cu).
 MAX_T = 2048
+# The copies of the frame a DCI search decodes over: viterbi_decode's
+# default, which the reference's blind decode takes.
+SEARCH_WRAP = 3
 
 
 def _parity(x: np.ndarray) -> np.ndarray:
@@ -170,3 +178,129 @@ def viterbi_decode(llrs, K: int, n_wrap: int = 3):
     kernels.check(err, "viterbi")
     count_launch("viterbi", (R, K))
     return out
+
+
+@dataclass(frozen=True)
+class SearchPlan:
+    """The search kernel's plan of one candidate set: `table` int32 [4 n_cand
+    + n_maps 3 K], each candidate's (start, E, L, map row) in LLRs and the
+    d_from_order map of each distinct E; `end` the furthest candidate's end
+    and `reach` = end - the first start, the most of the control region a
+    block stages. How many candidates a block takes is the launcher's
+    choice (viterbi_search_launch in csrc/viterbi.cu)."""
+    table: np.ndarray
+    n_cand: int
+    n_maps: int
+    end: int
+    reach: int
+
+
+@functools.lru_cache(maxsize=None)
+def _search_plan(K: int, cands: tuple) -> SearchPlan:
+    """The plan of `cands`, ((start, E), ...) in LLRs of a control region
+    row, one or more with 0 <= start and 1 <= E; raises ValueError
+    otherwise. Cached by the candidates themselves: the UE search space
+    moves with the subframe."""
+    if not cands or any(len(c) != 2 or c[0] < 0 or c[1] < 1 for c in cands):
+        raise ValueError(f"viterbi_search: candidates {cands} must be one or "
+                         "more (start, E) with 0 <= start, 1 <= E")
+    Es = sorted({E for _, E in cands})
+    maps = [make_cc_rate_match_maps(K, E) for E in Es]
+    desc = np.asarray([(s, E, maps[Es.index(E)].L, Es.index(E))
+                       for s, E in cands], np.int32)
+    end = max(s + E for s, E in cands)
+    table = np.concatenate([desc.ravel()]
+                           + [m.d_from_order for m in maps]).astype(np.int32)
+    return SearchPlan(table=table, n_cand=len(cands), n_maps=len(maps),
+                      end=end, reach=end - min(s for s, _ in cands))
+
+
+def search_llrs_ref(llr_cces, K: int, cands: tuple):
+    """The plain version of the search kernel's load phase:
+    cc_rate_match_rx of each candidate's E LLRs from `start`, concatenated
+    candidate-major. llr_cces [B, W] -> d-stream LLRs [n_cand * B, 3, K]."""
+    return torch.cat([cc_rate_match_rx(llr_cces[:, s:s + E],
+                                       make_cc_rate_match_maps(K, E))
+                      for s, E in cands], dim=0)
+
+
+def viterbi_search_ref(llr_cces, K: int, cands: tuple):
+    """The plain version of the search kernel: the candidate loop into
+    viterbi_decode_ref. llr_cces [B, W] -> decisions [n_cand * B, K] int8,
+    candidate-major."""
+    return viterbi_decode_ref(search_llrs_ref(llr_cces, K, cands), K,
+                              SEARCH_WRAP)
+
+
+def _check_search_args(llr_cces, K: int, cands: tuple) -> SearchPlan:
+    """What the search kernel takes: float32 llr_cces [B, W]; 1 <=
+    SEARCH_WRAP * K <= MAX_T; one or more candidates (start, E) with 0 <=
+    start, 1 <= E, start + E <= W. Returns their plan; raises ValueError or
+    TypeError otherwise."""
+    if llr_cces.dim() != 2:
+        raise ValueError(f"viterbi_search: llr_cces {tuple(llr_cces.shape)} "
+                         "must be [B, W]")
+    if llr_cces.dtype != torch.float32:
+        raise TypeError(f"viterbi_search: float32 llr_cces required, not "
+                        f"{llr_cces.dtype}")
+    if K < 1 or SEARCH_WRAP * K > MAX_T:
+        raise ValueError(f"viterbi_search: {SEARCH_WRAP} K = "
+                         f"{SEARCH_WRAP} * {K} must be in [1, {MAX_T}]")
+    plan = _search_plan(K, cands)
+    if plan.end > llr_cces.shape[1]:
+        raise ValueError(f"viterbi_search: candidates {cands} pass the "
+                         f"{llr_cces.shape[1]} LLRs of a row")
+    return plan
+
+
+def _search_launch(llr_cces, K: int, cands: tuple, llrs_only: bool):
+    """One launch of the search kernel on a CUDA tensor: decisions [n_cand
+    B, K] int8, or with llrs_only the load phase's d-stream LLRs [n_cand B,
+    3, K] float32."""
+    if llr_cces.device.type != "cuda":
+        raise ValueError(f"viterbi_search: llr_cces on {llr_cces.device}; "
+                         "CUDA or CPU required")
+    plan = _check_search_args(llr_cces, K, cands)
+    dev = llr_cces.device
+    table = device_plan(plan.table, dev)
+    llr = llr_cces.contiguous()
+    B = llr.shape[0]
+    rows = plan.n_cand * B
+    if llrs_only:
+        out, d_out = None, torch.empty(rows, 3, K, device=dev)
+    else:
+        out, d_out = torch.empty(rows, K, dtype=torch.int8, device=dev), None
+    err = kernels.load().viterbi_search_launch(
+        llr.data_ptr(), llr.shape[1], B, table.data_ptr(), plan.n_cand,
+        plan.n_maps, plan.reach, K, SEARCH_WRAP,
+        None if out is None else out.data_ptr(),
+        None if d_out is None else d_out.data_ptr(), kernels.stream_of(llr))
+    kernels.check(err, "viterbi_search")
+    count_launch("viterbi_search", (B, llr.shape[1], K, cands)
+                 + (("llrs",) if llrs_only else ()))
+    return d_out if llrs_only else out
+
+
+def viterbi_search(llr_cces, K: int, cands: tuple):
+    """Decode every candidate of one blind search: candidate c's E LLRs
+    from `start` of each row of llr_cces [B, W], de-rate-matched to K bits
+    (cc_rate_match_rx) and Viterbi-decoded over SEARCH_WRAP copies. cands
+    ((start, E), ...) -> decisions [n_cand * B, K] int8, candidate-major:
+    one launch of the search kernel for a CUDA tensor, viterbi_search_ref
+    for a CPU tensor; B = 0 returns at once."""
+    if llr_cces.shape[0] == 0:
+        return torch.empty(0, K, dtype=torch.int8, device=llr_cces.device)
+    if llr_cces.device.type == "cpu":
+        return viterbi_search_ref(llr_cces, K, cands)
+    return _search_launch(llr_cces, K, cands, llrs_only=False)
+
+
+def search_llrs(llr_cces, K: int, cands: tuple):
+    """The search kernel's load phase alone, which holds its de-rate-matching
+    (the fold's order of adds included) against search_llrs_ref: d-stream
+    LLRs [n_cand * B, 3, K] float32; search_llrs_ref for a CPU tensor."""
+    if llr_cces.shape[0] == 0:
+        return torch.empty(0, 3, K, device=llr_cces.device)
+    if llr_cces.device.type == "cpu":
+        return search_llrs_ref(llr_cces, K, cands)
+    return _search_launch(llr_cces, K, cands, llrs_only=True)

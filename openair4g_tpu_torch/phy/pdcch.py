@@ -2,7 +2,8 @@
 openair4g_tpu/phy/pdcch.py): the CFI codewords and their correlation
 decoder, the format-1A payload, CRC16 masked by the RNTI, tail-biting CC,
 rate matching to 72 L bits; the blind search decodes every candidate
-(aggregation L, CCE offset) as rows of one batched Viterbi call.
+(aggregation L, CCE offset) in one call of ops/convcode.viterbi_search: on
+the card one launch, the de-rate-matching in its load phase.
 """
 from __future__ import annotations
 
@@ -14,10 +15,10 @@ import numpy as np
 import torch
 
 from ..device import device_plan
-from ..ops.convcode import conv_encode_host, viterbi_decode
+from ..ops.convcode import conv_encode_host, viterbi_search
 from ..ops.crc import crc_bits_host, crc_matrix, crc_remainder
 from ..ops.gold import gold_sequence
-from ..ops.rate_match import cc_rate_match_rx, make_cc_rate_match_maps
+from ..ops.rate_match import make_cc_rate_match_maps
 
 BITS_PER_CCE = 72        # 9 REGs x 4 REs, QPSK
 
@@ -191,13 +192,9 @@ def dci_blind_decode(llr_cces, payload_len: int, rnti: int,
     B = llr_cces.shape[0]
     dev = llr_cces.device
     K = payload_len + 16
-    d_all = []
-    for c in candidates:
-        E = BITS_PER_CCE * c.L
-        s = c.cce_offset * BITS_PER_CCE
-        d_all.append(cc_rate_match_rx(llr_cces[:, s:s + E],
-                                      make_cc_rate_match_maps(K, E)))
-    bits = viterbi_decode(torch.cat(d_all, dim=0), K)    # [n_cand*B, K]
+    cands = tuple((c.cce_offset * BITS_PER_CCE, BITS_PER_CCE * c.L)
+                  for c in candidates)
+    bits = viterbi_search(llr_cces, K, cands)            # [n_cand*B, K]
     crc_calc = crc_remainder(bits[:, :payload_len],
                              crc_matrix(payload_len, "crc16"))
     expect = torch.remainder(

@@ -27,8 +27,9 @@ same steps with each
 phase function wrapped in torch.cuda.synchronize()-bracketed host
 timers (the names the sim modules imported are patched, so the sync
 adds to the total and nested phases are reported inside their parent);
-the Viterbi decoder (the kernel on a card) is reported inside the DCI
-blind decode and the CQI decode that call it; then
+the Viterbi decoder (the kernel on a card: for the DCI, the search entry
+with the candidates' de-rate-matching) is reported inside the DCI blind
+decode and the CQI decode that call it; then
 torch.profiler over 3 unwrapped steps for the device time and busy
 share. With the dd path, the time-domain FIR channel of one round at the
 same shape against the per-subcarrier multiply, by CUDA events. With
@@ -86,7 +87,7 @@ def patch() -> list:
     p(dlsim_mimo.SfbcPdcch, "tx", "PDCCH tx")
     p(dlsim_mimo.SfbcPdcch, "rx", "PDCCH rx (combine, demap, blind decode)")
     p(dlsim_mimo, "dci_blind_decode", "  dci_blind_decode")
-    p(pdcch, "viterbi_decode", "    viterbi_decode (kernel; DCI)")
+    p(pdcch, "viterbi_search", "    viterbi_search (kernel; DCI)")
     p(ofdm, "ofdm_modulate", "OFDM modulate")
     p(ofdm, "ofdm_demodulate", "OFDM demodulate")
     for m in (dlsim_mimo, dlsim_sm):

@@ -127,19 +127,23 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [1, 128, 21120])
+@pytest.mark.parametrize("R", [1, 5, 13, 128, 21120])
 def test_kernel_equals_plain_version(cuda, R):
     """One launch a call, equal to the plain version bit for bit at every
-    path K and n_wrap 1 and 3, on Gaussian and on tie-forcing integer LLRs
-    (21,120 rows: UlGrantSim's 165 candidates x 128)."""
+    path K and n_wrap 1 and 3, on Gaussian and on tie-forcing integer LLRs;
+    at the ACS's edges: one row, rows that fill no warp (4 rows) or block
+    (8 rows) and, up to 13 rows, T = MAX_T (n_wrap 1 and 3); 21,120 rows is
+    UlGrantSim's 165 candidates x 128."""
     rng = np.random.default_rng(R)
-    for K in PATH_KS:
-        for n_wrap in (1, 3):
-            for llr in (3.0 * rng.normal(size=(R, 3, K)),
-                        rng.integers(-2, 3, (R, 3, K))):
-                x = torch.from_numpy(llr.astype(np.float32)).to(cuda)
-                before = launch_counts()["viterbi"]
-                got = cc.viterbi_decode(x, K, n_wrap)
-                torch.cuda.synchronize()
-                assert launch_counts()["viterbi"] == before + 1
-                assert torch.equal(got, cc.viterbi_decode_ref(x, K, n_wrap))
+    shapes = [(K, n_wrap) for K in PATH_KS for n_wrap in (1, 3)]
+    if R <= 13:
+        shapes += [(cc.MAX_T, 1), (cc.MAX_T // 3, 3)]
+    for K, n_wrap in shapes:
+        for llr in (3.0 * rng.normal(size=(R, 3, K)),
+                    rng.integers(-2, 3, (R, 3, K))):
+            x = torch.from_numpy(llr.astype(np.float32)).to(cuda)
+            before = launch_counts()["viterbi"]
+            got = cc.viterbi_decode(x, K, n_wrap)
+            torch.cuda.synchronize()
+            assert launch_counts()["viterbi"] == before + 1
+            assert torch.equal(got, cc.viterbi_decode_ref(x, K, n_wrap))
