@@ -24,7 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      estimation, batch 128, 8 turbo iterations, drawn on the card. At
      26 dB every TB and every DCI must decode; at 24 dB TBs must decode
      and BLER and subframes/s are printed. Its three kernels' launch
-     counts over these runs (v2, mrc_llr, the Viterbi) must be non-zero;
+     counts over these runs (the turbo decode kernel, mrc_llr, the
+     Viterbi's search) must be non-zero, and v2's 0: every decoding path
+     runs the v2 body inside the decode kernel, one launch a (K, F) group;
   6. demap_llr against its plain version on the card at the multi-antenna
      paths' shapes, one layer of an MMSE output read in place;
   7. the v1 turbo kernel against its plain version and the v2 kernel at
@@ -54,7 +56,7 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. the corpus receiver at full width: DlsimFading 100 PRB, MCS 26, EVA,
      1x2 MRC, dd, CFI 2, 4 HARQ rounds, dlsim SNR convention, batch 128,
      8 steps at 14.6 dB: round-0 BLER in [0.02, 0.98], fewer errors in
-     round 1 than 0, at most 1 % DCI misses, both kernels launched;
+     round 1 than 0, at most 1 % DCI misses, its kernels launched;
  14. the SISO fidelity anchors of tests/test_bler_anchor.py and
      tests/test_fading.py, fading corpus tests 6 and 11 and the Doppler
      corpus point, with the reference's configurations, trial counts and
@@ -74,7 +76,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      channel, 4 HARQ rounds, batch 128, UCI of 30 CQI bits, RI and 2 ACK
      bits; at 30 dB every TB and UCI field decodes, at UL_MID_SNR round 0
      fails for 20-80 % of the TBs and round 1 for fewer; step time, TB
-     trials/s and the v2 kernel's launches in one step;
+     trials/s and the decode kernel's launches in one step;
  20. the uplink ladder anchors of tests/test_bler_anchor.py in their
      bands, and four ulsim_campaign.json points beside the port's BLER
      over 2,048 trials;
@@ -91,7 +93,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      delays to 0.8 of the CP, 8 iterations, batch 128. With the channel
      known every TB decodes at MBMS_HIGH_SNR and BLER is in [0.05, 0.5]
      at MBMS_MID_SNR; with the MBSFN RS estimate the reference's BLER
-     floor holds at MBMS_HIGH_SNR; step times, TB trials/s and the v2
+     floor holds at MBMS_HIGH_SNR; step times, TB trials/s and the decode
      kernel's launches in one step;
  25. the reference's control and sync anchors: tests/test_pbch_pdcch_anchor
      .py (PBCH 25 PRB; PDCCH 100 PRB CFI 2 L = 4 and 8), the cell-search
@@ -125,10 +127,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      tests/test_sched_ul.py, tests/test_tddsim.py);
  33. every other (kernel, shape) that phases 29-31 launched (each wrapper
      counts its launches by shape too), against its plain version on
-     random inputs of that shape: the flagship load's v2 at 1,408 x 5,760
-     and mrc_llr at Qm 6, UlGrantSim's and TddFrameSim's codecs, the TDD
-     frame's PCFICH, PDCCH and PDSCH; only v2, mrc_llr and the Viterbi
-     (held in phase 47) may launch;
+     random inputs of that shape: mrc_llr at Qm 6, the TDD frame's PCFICH,
+     PDCCH and PDSCH, and v2 at the shape of each decode key (the flagship
+     load's 1,408 x 5,760, UlGrantSim's and TddFrameSim's codecs); only the
+     decode kernel (held in phase 48), mrc_llr and the Viterbi (held in
+     phase 47) may launch;
  34. the system emulator at small size (6 PRB), card against CPU on the
      same draws (the CPU sim's, kept by TTI): Oaisim in the abstraction
      mode with EESM, PF and 4 HARQ rounds, with MIESM, TDD, UL traffic
@@ -143,8 +146,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  36. the full-PHY Oaisim at full width (3 eNBs 500 m apart, 128 static
      UEs, 100 PRB, MCS 16, EPA, 4 HARQ rounds, 6 iterations, full buffer,
      round robin, TX power 60 dB, 4 frames): every eNB schedules every
-     TTI, no UE at a geometry SINR of 20 dB or more loses a TB, v2
-     launches on every TTI and at 640 x 6,240 only; mean BLER,
+     TTI, no UE at a geometry SINR of 20 dB or more loses a TB, the decode
+     kernel launches on every TTI and at 640 rows of K = 6,144 only (v2's
+     640 x 6,240); mean BLER,
      retransmissions, throughput and ms a TTI; then 1 eNB at 70 dB loses
      no TB and retransmits none;
  37. the abstraction Oaisim at full width (7 eNBs, 1,024 UEs, 100 PRB,
@@ -159,19 +163,20 @@ Phases, in order; any failure raises and the script exits non-zero:
  39. the single-UE capstone at the reference test's size (25 PRB, 12 dB,
      seed 0; decoder window 240 on both sides) on the CPU and on the
      card: the result (every flag, TTIs, PHY runs, the trace), the pcap
-     bytes and the MSC text equal; only v2 and the Viterbi launch;
+     bytes and the MSC text equal; only the decode kernel and the Viterbi
+     launch;
  40. FullStackSim at 100 PRB: the ladder (12 dB, seed 0) with every
      assertion of tests/test_capstone.py::test_full_stack_over_the_air
      and the JAX run's 53 TTIs and PHY runs, the 450 B NAS ladder and the
      mobile-terminated attach through paging with their reference tests'
-     assertions; the ms of each DL, UL and PRACH PHY TTI, v2's launches by
+     assertions; the ms of each DL, UL and PRACH PHY TTI, the launches by
      shape, each run's seconds;
  41. MultiUeSim at 100 PRB: 4 UEs under the PF scheduler on measured CQI
      (18 dB, a 9 dB spread, seed 1), 2 UEs (15 dB, seed 2) and then
      HandoverPhySim, gated by the reference tests' assertions, with the
      counts beside the JAX run's at 100 PRB and ms a TTI; then v2 against
-     its plain version, bit for bit, at every shape phases 39-41
-     launched (batch-1 rows of one code block);
+     its plain version, bit for bit, at the shape of every decode key
+     phases 39-41 launched (batch-1 rows of one code block);
  43. the native runtime at 20 MHz (run before 42): ring, ITTI queue and
      scheduler round trips; a SoftModem paced at 1 ms with 2 workers over
      a 100 PRB framegen frame ten times over, each subframe's OFDM
@@ -195,9 +200,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      captures with peaks inside a block, straddling each boundary, at the
      last position searched and in noise: pos and NID2 equal
      CellSearch.pss_correlate's on the whole capture; d. every (kernel,
-     shape) the ranks launched that no earlier phase held (v2 at 704 x
-     5,760, mrc_llr at [64, 15,000] Qm 6 and [64, 756] Qm 2, the AWGN
-     sweep's and entry()'s v2 shapes) against its plain version. Each
+     shape) the ranks launched that no earlier phase held (the decode at
+     each key against the host loop and v2 at its shape: 704 x 5,760, the
+     AWGN sweep's and entry()'s; mrc_llr at [64, 15,000] Qm 6 and [64,
+     756] Qm 2) against its plain version. Each
      rank's step and collective times are printed, not gated: ranks that
      share one card measure no scaling;
  45. the port bench (run before 42): openair4g_tpu_torch.bench's four
@@ -205,9 +211,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      DlsimAwgn 25 PRB MCS 4 at batch 512, the turbo decode of MCS 10 on
      50 PRB at batch 512 with dynamic_stop off and on, the 20 MHz front
      end), each between launch-count resets: its rates (best and median
-     window) printed as the bench prints them; the fixed-8 decode
-     launches v2 2 x 8 times a call, the dynamic stop fewer, the front end
-     none; v2 at the turbo cell's 1,024 x 4,080 bit for bit, mrc_llr at
+     window) printed as the bench prints them; each decode launches the
+     decode kernel once, every row of the fixed-8 decode runs 8 iterations
+     and those of the dynamic stop fewer on the mean (read from the device
+     after the timed windows), the front end launches nothing; v2 at the
+     turbo cell's 1,024 x 4,080 bit for bit, mrc_llr at
      the flagship cell's shapes within rtol = atol = 3e-4, every other
      (kernel, shape) the cells launched against its plain version;
  46. the campaign programs (openair4g_tpu_torch.scripts) through their
@@ -249,50 +257,63 @@ Phases, in order; any failure raises and the script exits non-zero:
      searches) and a 100 PRB capstone DL PHY TTI: each fused call must
      launch the search once and nothing else and de-rate-match nothing on
      the host, and the turns' flags must be equal;
+ 48. the turbo decode kernel (csrc/turbo_half_iter.cu turbo_decode_kernel,
+     run before 42): at every launch key (B, K, F, W, U, n_iter, CRC,
+     dynamic_stop) the paths of phases 4-47 launched (the ranks' of phase
+     44 added), on blocks turbo coded on the card with a noise level that
+     rises over the rows, against the host loop (turbo_decode_ref, its
+     half-iterations on the v2 kernel) in both stop modes: bits, flags and
+     iterations run torch.equal, one launch a call; each key's time by
+     CUDA events beside the loop's and the bound from this run's
+     iterations; once against the all-plain loop (half_iteration_ref) at
+     16 x K = 1,024; then the flagship's decode under
+     torch.cuda.set_sync_debug_mode("error"), which raises at a host sync;
+     then, by torch.profiler, the flagship group's decode at fixed
+     iterations against the host loop's 2 n_iter v2 launches at its shape;
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
      trace_dir writes a trace with the dlsim.step span and
-     turbo_half_iter_kernel device events (this holds a profiler
+     turbo_decode_kernel device events (this holds a profiler
      session, so it runs after every other path);
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44-47 timed, by torch.profiler's
+     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44-48 timed, by torch.profiler's
      device-side events (the kernel alone, without the host's enqueue
      time that CUDA events around back-to-back calls of a few-µs kernel
      measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
      same library (kernels of different names share a profiler session);
      then the device kernels, copies and fills of one v1 call, which must
      be its one kernel; then the device time a step of phase 13's, 19's,
-     24's and 29's paths, with the v2 kernel's share of the uplink, MBSFN
-     and full-chain steps', of a call of each phase 26 path, and of a TTI
-     of phase 36's and 37's Oaisims, with v2's share of the first, and of
+     24's and 29's paths, with the decode kernel's share of the uplink,
+     MBSFN and full-chain steps', of a call of each phase 26 path, and of a
+     TTI of phase 36's and 37's Oaisims, with its share of the first, and of
      one 100 PRB capstone DL PHY TTI and one 4-UE multi-UE TTI, and of a
      step of each bench cell (a decode of each turbo mode). It runs
      last: the profiler is started after every path has run, so no path
      is timed in a process that has held a profiling session.
 Each path is driven with the launch counts set to 0 just before it and
 read just after; every kernel must have launched on its path (v1, which
-no path runs, in its own timed run). Each phase prints its seconds. Ends
-with a JSON line of the kernels (launches on the paths, launches per
-flagship step, error, times, and the bound: the least time the card could
-take for the same work, from its bytes or operations; the v2 kernel has a
-row at the uplink shape, with the uplink paths' launches, one at the
-MBSFN shape, with the MBSFN paths'; each (kernel, shape) of phases 28 and
-33 has a row with the launches of that shape alone in phases 29-32, by
-phase, those a step of the first run where it ran, and its share of its
-bound; v2 at the full-PHY oaisim shape with phase 36's launches, those a
-TTI, and phases 36's and 37's device time a TTI; v2 at each capstone
-shape with its launches by phase in 39-41, the device time of a capstone
-DL PHY TTI and of a multi-UE TTI, the SoftModem's missed deadlines and
-the flagship step with the profiler on and off; each (kernel, shape) of
-phases 44d, 45 and 46 with the launches at it there, launches_by_phase
-{phase: n}, and their launches at phase 3's flagship shapes added to those
-rows; v2 at the bench's turbo shape with its launches a decode of each
-mode and each decode's device time; the Viterbi's [R, 3, K] entry at each
-(R, K) and its search entry at each (B, W, K, number of candidates), with
-their launches by phase, the latency floor and one row's time, and at
-phase 5's shape the search's launches a flagship step and the A/B of
-phase 47), the total seconds,
+no path runs, in its own timed run; v2, whose body runs inside the decode
+kernel, launches on no path but phase 46's roofline). Each phase prints
+its seconds. Ends with a JSON line of the kernels (launches, error,
+times, and the bound: the least time the card could take for the same
+work, from its bytes or operations): v2 at the flagship's shape, with
+the launches of its own timed run, counted, and at each shape a direct
+caller launched (phase 46's roofline), with the paths' launches (it is
+held bit for bit, without a row, at the shape of every other decode key
+the paths launched); v1; mrc_llr and demap_llr, each (kernel, shape) of
+phases 28, 33 and 44-46 with its launches by phase and those a step of
+the first run where it ran; the decode kernel at every key the paths
+launched, with its launches by phase, those a flagship step, and where a
+path's step was profiled its device time and the kernel's share of it
+(the uplink, MBSFN and full-chain steps, the full-PHY and abstraction
+oaisim TTIs, the capstone and multi-UE TTIs with the SoftModem's missed
+deadlines and the flagship step with the profiler on and off, the bench
+cell's decodes); the Viterbi's [R, 3, K] entry at each (R, K) and its
+search entry at each (B, W, K, number of candidates), with their launches
+by phase, the latency floor and one row's time, and at phase 5's shape
+the search's launches a flagship step and the A/B of phase 47), the
+total seconds,
 then the device JSON line. It needs a CUDA device and imports
 nothing of JAX.
 """
@@ -322,6 +343,8 @@ from openair4g_tpu_torch.ops.equalize_llr import (demap_llr_fused,
                                                   demap_llr_fused_ref,
                                                   mrc_llr, mrc_llr_ref)
 from openair4g_tpu_torch.ops import convcode as convcode_mod
+from openair4g_tpu_torch.ops import turbo as turbo_mod
+from openair4g_tpu_torch.ops.crc import crc_device
 from openair4g_tpu_torch.ops.convcode import (search_llrs, search_llrs_ref,
                                               viterbi_decode,
                                               viterbi_decode_ref,
@@ -401,6 +424,9 @@ N_DATA, N_PDCCH_RE = 15000, 756
 # The turbo kernels and their plain versions run the same float32
 # operations in the same order: they must be equal bit for bit.
 TURBO_ATOL = 0.0
+# The v2 kernel's timed run: a warm-up and V2_TIMED calls, its launches
+# where no path launches it (the paths run its body in the decode kernel).
+V2_TIMED = 20
 # mrc_llr: the kernel forms -(num - l h2)^2 / (h2 n0), the plain version
 # (num/h2 - l)^2 / (n0/h2): same value, other rounding (as the reference's
 # tests/test_equalize_llr.py tolerates).
@@ -416,31 +442,54 @@ TURBO_V1_SCRATCH_MAX = 45e6
 # The Viterbi kernel's two entries: [R, 3, K] (the PBCH, the CQI) and the
 # DCI blind search.
 VITERBI_NAMES = ("viterbi", "viterbi_search")
-# Their launches on the paths, {phase: {(name, launch key): launches}}.
-# Every DCI, PBCH and CQI decode goes through one of them and the phases
-# reset the counters many times, so their launches are gathered whenever
-# they are reset (reset_counts) and at each phase's start and end; phase
-# 47 holds both entries at every shape gathered.
+# The turbo decode: every decoding path launches turbo_decode_kernel once a
+# (K, F) group, key (B, K, F, W, U, n_iter, CRC, dynamic_stop); the v2
+# kernel's body runs inside it, and the v2 kernel itself launches only for
+# direct callers (phase 46's turbo roofline) and the decode's plain loop.
+DECODE = "turbo_decode"
+DECODE_KERNEL = "turbo_decode_kernel<"
+# The launches of both on the paths, {phase: {(name, launch key):
+# launches}}. Every DCI, PBCH, CQI and turbo decode goes through one of
+# them and the phases reset the counters many times, so their launches are
+# gathered whenever they are reset (reset_counts) and at each phase's start
+# and end; phase 47 holds the Viterbi's entries at every shape gathered,
+# phase 48 the decode at every key.
 VITERBI_LAUNCHES: dict = {}
+DECODE_LAUNCHES: dict = {}
 _GATHERED = {"phase": None, "seen": {}}
 
 
-def _gather_viterbi() -> None:
-    """Add the Viterbi launches since the last gathering to the current
-    phase's."""
-    now = {(name, key): n for (name, key), n in launch_shapes().items()
-           if name in VITERBI_NAMES}
-    into = VITERBI_LAUNCHES.setdefault(_GATHERED["phase"], {})
+def _gathered_now() -> dict:
+    return {(name, key): n for (name, key), n in launch_shapes().items()
+            if name in VITERBI_NAMES or name == DECODE}
+
+
+def _gather_paths() -> None:
+    """Add the Viterbi's and the decode's launches since the last gathering
+    to the current phase's."""
+    now = _gathered_now()
+    VITERBI_LAUNCHES.setdefault(_GATHERED["phase"], {})
     for key, n in now.items():
         new = n - _GATHERED["seen"].get(key, 0)
         if new:
+            into = (DECODE_LAUNCHES if key[0] == DECODE
+                    else VITERBI_LAUNCHES).setdefault(_GATHERED["phase"], {})
             into[key] = into.get(key, 0) + new
     _GATHERED["seen"] = now
 
 
+@contextlib.contextmanager
+def _not_a_path():
+    """Launches made inside compare a kernel with its plain version: they
+    are left out of the gathered launches."""
+    _gather_paths()
+    yield
+    _GATHERED["seen"] = _gathered_now()
+
+
 def reset_counts() -> None:
-    """Set every launch count to 0, the Viterbi launches gathered first."""
-    _gather_viterbi()
+    """Set every launch count to 0, the gathered launches gathered first."""
+    _gather_paths()
     reset_launch_counts()
     _GATHERED["seen"] = {}
 
@@ -456,6 +505,19 @@ def _time_ms(fn, n: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def _timed_v2(kernel) -> tuple:
+    """(ms, launches) of the v2 kernel's timed run: a warm-up and V2_TIMED
+    calls of kernel timed by CUDA events, its launches read from the
+    wrapper's count, which must have grown by V2_TIMED + 1."""
+    before = launch_counts()["turbo_half_iter"]
+    ms = _time_ms(kernel, V2_TIMED)
+    launches = launch_counts()["turbo_half_iter"] - before
+    if launches != V2_TIMED + 1:
+        raise AssertionError(f"v2's timed run: {launches} launches counted, "
+                             f"{V2_TIMED + 1} made")
+    return ms, launches
 
 
 def _profiled(items: list, n: int) -> list:
@@ -540,15 +602,15 @@ PROFILED_STEPS = 2
 
 
 def _step_device_time(fn) -> tuple:
-    """(device ms a call, the v2 kernel's device ms a call, its launches
-    seen, host ms a profiled call) over PROFILED_STEPS calls of fn, by
-    torch.profiler."""
+    """(device ms a call, the decode kernel's device ms a call, its
+    launches seen, host ms a profiled call) over PROFILED_STEPS calls of
+    fn, by torch.profiler."""
     events, dev_us, wall = profile_steps(fn, PROFILED_STEPS)
-    v2 = [e for e in events if e.self_device_time_total > 0
-          and "turbo_half_iter_kernel<" in e.key.replace(" ", "")]
+    dec = [e for e in events if e.self_device_time_total > 0
+           and "turbo_decode_kernel<" in e.key.replace(" ", "")]
     return (dev_us / PROFILED_STEPS / 1e3,
-            sum(e.self_device_time_total for e in v2) / PROFILED_STEPS / 1e3,
-            sum(e.count for e in v2), wall * 1e3)
+            sum(e.self_device_time_total for e in dec) / PROFILED_STEPS / 1e3,
+            sum(e.count for e in dec), wall * 1e3)
 
 
 def device_times(timings: list, one_launch: tuple, dd: tuple,
@@ -562,18 +624,28 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
     of dd = (sim, SNR), of the full-width uplink ul = (sim, SNR), of the
     full-width Mbmssim mbms = ((sim, SNR) with the channel known, (sim,
     SNR) with the MBSFN RS estimate) and of FullChainSim at the flagship
-    load full = (sim, SNR), with the v2 kernel's share of each but dd's;
-    then the device time a call of each (label, fn) of steps, with the v2
-    kernel's part (and, for the labels in top_events_of, the five largest
-    device events of a call); then the device time a TTI of each (label, Oaisim) of
-    frames, a call being one frame of 10 TTIs, with the v2 kernel's share.
+    load full = (sim, SNR), with the decode kernel's share of each but
+    dd's; then the device time a call of each (label, fn) of steps, with
+    the decode kernel's part (and, for the labels in top_events_of, the
+    five largest device events of a call); then the device time a TTI of
+    each (label, Oaisim) of frames, a call being one frame of 10 TTIs,
+    with the decode kernel's share. The decode's timings are taken over 5
+    launches each, the others' over 20.
     Returns the uplink's, the first Mbmssim's and the FullChainSim's
     figures, those of frames by label and those of steps by label."""
     lib = kernels.load()
     stream = torch.cuda.current_stream().cuda_stream
     items = [(lambda: kernels.check(lib.empty_launch(stream), "empty"),
-              "empty_kernel")] + [(fn, kernel) for _, fn, kernel, _ in timings]
-    (floor, count), *times = _device_ms(items, 20)
+              "empty_kernel")] + [(fn, kernel) for _, fn, kernel, _ in timings
+                                  if kernel != DECODE_KERNEL]
+    with _not_a_path():
+        (floor, count), *times = _device_ms(items, 20)
+        times = iter(times)
+        decode_times = iter(_device_ms(
+            [(fn, kernel) for _, fn, kernel, _ in timings
+             if kernel == DECODE_KERNEL], 5))
+    times = [next(decode_times if kernel == DECODE_KERNEL else times)
+             for _, _, kernel, _ in timings]
     print(f"launch floor: an empty <<<1, 32>>> kernel takes {floor:.4f} ms "
           f"of device time (mean of {count} launches)", flush=True)
     for (label, _, _, row), (ms, count) in zip(timings, times):
@@ -620,24 +692,24 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
         gen = torch.Generator(device=sim.device).manual_seed(5)
         n0 = 10.0 ** (-snr / 10.0)
         args = state(sim, snr)
-        dev_ms, v2_ms, v2_n, wall = _step_device_time(
+        dev_ms, dec_ms, dec_n, wall = _step_device_time(
             lambda: sim.step(gen, n0, *args))
-        share = v2_ms / dev_ms if dev_ms else 0.0
+        share = dec_ms / dev_ms if dev_ms else 0.0
         print(f"{label} at {snr} dB: {dev_ms:.2f} ms device time a step over "
-              f"{PROFILED_STEPS} profiled steps, the v2 kernel {v2_ms:.2f} ms "
-              f"of it ({share:.1%}, {v2_n} launches seen); {wall:.1f} ms a "
-              "profiled step on the host", flush=True)
+              f"{PROFILED_STEPS} profiled steps, the decode kernel "
+              f"{dec_ms:.2f} ms of it ({share:.1%}, {dec_n} launches seen); "
+              f"{wall:.1f} ms a profiled step on the host", flush=True)
         figures.append({"step_device_ms": dev_ms,
-                        "kernel_device_ms_per_step": v2_ms,
+                        "kernel_device_ms_per_step": dec_ms,
                         "kernel_share": share, "profiled_step_ms": wall})
     by_step = {}
     for label, fn in steps:
-        dev_ms, v2_ms, v2_n, wall = _step_device_time(fn)
+        dev_ms, dec_ms, dec_n, wall = _step_device_time(fn)
         print(f"{label}: {dev_ms:.2f} ms device time a call over "
-              f"{PROFILED_STEPS} profiled calls, the v2 kernel {v2_ms:.3f} ms"
-              f" of it ({v2_n} launches seen); {wall:.1f} ms a profiled call"
-              " on the host", flush=True)
-        by_step[label] = {"device_ms": dev_ms, "kernel_device_ms": v2_ms,
+              f"{PROFILED_STEPS} profiled calls, the decode kernel "
+              f"{dec_ms:.3f} ms of it ({dec_n} launches seen); {wall:.1f} ms "
+              "a profiled call on the host", flush=True)
+        by_step[label] = {"device_ms": dev_ms, "kernel_device_ms": dec_ms,
                           "profiled_ms": wall}
         if label in top_events_of:
             events, _, _ = profile_steps(fn, PROFILED_STEPS)
@@ -650,16 +722,16 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
                 f" ms x{e.count // PROFILED_STEPS}" for e in top), flush=True)
     per_tti = {}
     for label, sim in frames:
-        dev_ms, v2_ms, v2_n, wall = _step_device_time(
+        dev_ms, dec_ms, dec_n, wall = _step_device_time(
             lambda: sim.run_frames(1))
-        share = v2_ms / dev_ms if dev_ms else 0.0
+        share = dec_ms / dev_ms if dev_ms else 0.0
         print(f"{label}: {dev_ms / 10:.3f} ms device time a TTI over "
-              f"{PROFILED_STEPS} profiled frames, the v2 kernel "
-              f"{v2_ms / 10:.3f} ms of it ({share:.1%}, {v2_n} launches "
+              f"{PROFILED_STEPS} profiled frames, the decode kernel "
+              f"{dec_ms / 10:.3f} ms of it ({share:.1%}, {dec_n} launches "
               f"seen); {wall / 10:.1f} ms a profiled TTI on the host",
               flush=True)
         per_tti[label] = {"tti_device_ms": dev_ms / 10,
-                          "kernel_device_ms_per_tti": v2_ms / 10,
+                          "kernel_device_ms_per_tti": dec_ms / 10,
                           "kernel_share": share, "profiled_tti_ms": wall / 10}
     return figures[0], figures[1], figures[3], per_tti, by_step
 
@@ -700,14 +772,14 @@ def check_turbo(dev, gen, timings) -> dict:
     if scratch > TURBO_SCRATCH_MAX:
         raise AssertionError(f"turbo kernel scratch {scratch} bytes")
     kernel = functools.partial(half_iteration, lin, lp, TURBO_W, TURBO_U)
-    ms = _time_ms(kernel, 20)
+    ms, launches = _timed_v2(kernel)
     plain = _time_ms(lambda: half_iteration_ref(lin, lp, TURBO_W, TURBO_U), 3)
     bound = _bound(3 * 4 * TURBO_ROWS * N, TURBO_OPS_PER_POS * TURBO_ROWS * N)
     print(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); share of the "
           f"bound (bound / time) {bound['bound_ms'] / ms:.1%}", flush=True)
     row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-           "scratch_bytes": scratch, **bound}
+           "launches": launches, "scratch_bytes": scratch, **bound}
     timings.append(("turbo_half_iter flagship", kernel,
                     "turbo_half_iter_kernel<", row))
     return row
@@ -838,9 +910,10 @@ def flagship(dev) -> tuple:
     print(f"launches over the flagship runs: {counts}", flush=True)
     if errs == trials:
         raise AssertionError("flagship at 24 dB decodes no TB")
-    if min(counts["turbo_half_iter"], counts["mrc_llr"],
-           counts["viterbi_search"]) == 0:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if min(counts[DECODE], counts["mrc_llr"],
+           counts["viterbi_search"]) == 0 or counts["turbo_half_iter"]:
+        raise AssertionError(f"a kernel of the path never launched, or v2 "
+                             f"outside the decode kernel: {counts}")
     return counts, 2 + n_rep       # steps: 26 dB, settle, timed
 
 
@@ -1052,10 +1125,10 @@ def tm2_anchor(dev) -> int:
         raise AssertionError(f"TM2 BLER at 15 dB {bler[15.0]} above 0.021")
     if sim.dci_miss:
         raise AssertionError(f"TM2: {sim.dci_miss} DCI misses at 15 dB")
-    if min(counts["demap_llr"], counts["turbo_half_iter"],
-           counts["viterbi_search"]) == 0:
-        raise AssertionError(f"a kernel of the TM2 path never launched: "
-                             f"{counts}")
+    if min(counts["demap_llr"], counts[DECODE],
+           counts["viterbi_search"]) == 0 or counts["turbo_half_iter"]:
+        raise AssertionError(f"a kernel of the TM2 path never launched, "
+                             f"or v2 outside the decode kernel: {counts}")
     return counts["demap_llr"]
 
 
@@ -1088,10 +1161,10 @@ def tm3_full_width(dev) -> int:
         raise AssertionError(f"TM3: {dci_miss} DCI misses at 40 dB")
     if max(bler) > 0.2:
         raise AssertionError(f"TM3 codeword BLER {bler} above 0.2")
-    if min(counts["demap_llr"], counts["turbo_half_iter"],
-           counts["viterbi_search"]) == 0:
-        raise AssertionError(f"a kernel of the TM3 path never launched: "
-                             f"{counts}")
+    if min(counts["demap_llr"], counts[DECODE],
+           counts["viterbi_search"]) == 0 or counts["turbo_half_iter"]:
+        raise AssertionError(f"a kernel of the TM3 path never launched, "
+                             f"or v2 outside the decode kernel: {counts}")
     return counts["demap_llr"]
 
 
@@ -1259,10 +1332,10 @@ def dd_full_width(dev) -> dict:
         raise AssertionError(f"dd 1x2: no HARQ gain {errs}")
     if sim.dci_miss > 0.01 * reach[0]:
         raise AssertionError(f"dd 1x2: {sim.dci_miss} DCI misses")
-    if min(counts["mrc_llr"], counts["turbo_half_iter"],
-           counts["viterbi_search"]) == 0:
-        raise AssertionError(f"a kernel of the dd 1x2 path never launched: "
-                             f"{counts}")
+    if min(counts["mrc_llr"], counts[DECODE],
+           counts["viterbi_search"]) == 0 or counts["turbo_half_iter"]:
+        raise AssertionError(f"a kernel of the dd 1x2 path never launched, "
+                             f"or v2 outside the decode kernel: {counts}")
     return counts, (sim, snr)
 
 
@@ -1347,7 +1420,7 @@ def fidelity_anchors(dev) -> None:
               f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def entry_point(dev) -> int:
+def entry_point(dev) -> None:
     """DlsimAwgn at bench.py's second configuration (25 PRB, MCS 4, batch
     512, 8 iterations, 1 dB), then the dlsim command line on the card for
     -g EVA -r 4 and for -x 2, each writing its CSV under build/."""
@@ -1360,7 +1433,7 @@ def entry_point(dev) -> int:
     errs, trials = sim.run_snr(1.0, 4 * 512, seed=1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    n_turbo = launch_counts()["turbo_half_iter"]
+    n_turbo = launch_counts()[DECODE]
     print(f"DlsimAwgn 25 PRB MCS 4 at 1 dB: BLER {errs / trials:.4f} "
           f"({errs}/{trials}), {trials / dt:.1f} subframes/s (4 steps of "
           f"512, {dt:.3f} s), turbo launches {n_turbo}", flush=True)
@@ -1389,50 +1462,28 @@ def entry_point(dev) -> int:
                                  f"{len(rows)} sweep points")
         print(f"dlsim {' '.join(argv)} --device cuda: {path} "
               f"{lines}", flush=True)
-    return n_turbo
 
 
-# The uplink's turbo shape at full width: 128 subframes x 8 code blocks of
-# K = 5504 decode as 1,024 rows of N = 5,760 (24 windows of W = 240).
+# The uplink at full width: 128 subframes x 8 code blocks of K = 5,504
+# decode as 1,024 rows of N = 5,520 (23 windows of W = 240; phase 48 holds
+# the decode at that key); phase 17 holds v2 at 1,024 x 5,760, 24 windows.
 UL_TURBO_ROWS = BATCH * 8
 
 
-def check_turbo_uplink(dev, gen, timings) -> dict:
-    """The v2 kernel at the full-width uplink shape against its plain
-    version: equal bit for bit."""
+def check_turbo_uplink(dev, gen) -> dict:
+    """Phase 17: the v2 kernel at the full-width uplink shape against its
+    plain version: equal bit for bit."""
     N = TURBO_W * TURBO_NW
-    lin = 3.0 * torch.randn(UL_TURBO_ROWS, N, generator=gen, device=dev)
-    lp = 3.0 * torch.randn(UL_TURBO_ROWS, N, generator=gen, device=dev)
-    lin[:, -TURBO_W // 2:] = 1e4
-    lp[:, -TURBO_W // 2:] = 1e4
-    got = half_iteration(lin, lp, TURBO_W, TURBO_U)
-    want = half_iteration_ref(lin, lp, TURBO_W, TURBO_U)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    kernel = functools.partial(half_iteration, lin, lp, TURBO_W, TURBO_U)
-    ms = _time_ms(kernel, 20)
-    plain = _time_ms(lambda: half_iteration_ref(lin, lp, TURBO_W, TURBO_U), 3)
-    bound = _bound(3 * 4 * UL_TURBO_ROWS * N,
-                   TURBO_OPS_PER_POS * UL_TURBO_ROWS * N)
-    print(f"turbo_half_iter uplink [{UL_TURBO_ROWS}, {N}] W={TURBO_W} "
-          f"U={TURBO_U}: max|diff| {err:.3g} (tol {TURBO_ATOL}); kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} "
-          f"ms ({bound['bound_by']})", flush=True)
-    if not err <= TURBO_ATOL:
-        raise AssertionError(f"turbo kernel at the uplink shape disagrees: "
-                             f"{err}")
-    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound}
-    timings.append(("turbo_half_iter uplink", kernel,
-                    "turbo_half_iter_kernel<", row))
-    return row
+    return _hold_v2("uplink", UL_TURBO_ROWS, N, TURBO_W, TURBO_U, dev, gen,
+                    pad_from=N - TURBO_W // 2)
 
 
-def _v2_only(counts: dict, what: str) -> None:
-    """The uplink and the MBSFN paths run the v2 kernel and, as the
+def _decode_only(counts: dict, what: str) -> None:
+    """The uplink and the MBSFN paths run the decode kernel and, as the
     reference's receivers do, the plain demap: neither mrc_llr nor
-    demap_llr."""
-    if counts["turbo_half_iter"] == 0 or counts["mrc_llr"] \
-            or counts["demap_llr"] or counts["turbo_half_iter_v1"]:
+    demap_llr, and no v2 launch outside the decode kernel."""
+    if counts[DECODE] == 0 or counts["mrc_llr"] or counts["demap_llr"] \
+            or counts["turbo_half_iter"] or counts["turbo_half_iter_v1"]:
         raise AssertionError(f"{what}: launches {counts}")
 
 
@@ -1460,7 +1511,7 @@ _SMALL_UL = [
 ]
 
 
-def check_small_uplink(dev) -> int:
+def check_small_uplink(dev) -> None:
     """Batch 8, decoder window 240 on both sides: every Ulsim mode, card
     (kernels) against CPU (plain versions) on the same draws; every
     round's flags, the errs and reach, the UCI error counts."""
@@ -1492,8 +1543,7 @@ def check_small_uplink(dev) -> int:
               f"and CPU", flush=True)
     counts = launch_counts()
     print(f"launches over the small uplink runs: {counts}", flush=True)
-    _v2_only(counts, "small uplink")
-    return counts["turbo_half_iter"]
+    _decode_only(counts, "small uplink")
 
 
 # The full-width uplink: 100 PRB, MCS 20 (16QAM, TBS 43,816, 8 code blocks
@@ -1511,11 +1561,11 @@ UL_MID_SNR = 16.0
 def uplink_full_width(dev) -> tuple:
     """30 dB (every TB and UCI field decodes) and UL_MID_SNR (round-0 BLER
     in [0.2, 0.8], a HARQ gain), synced step time and TB trials/s, and the
-    v2 kernel's launches in one step."""
+    decode kernel's launches in one step."""
     sim = Ulsim(UlsimConfig(**UL_FULL), device=dev)
     sim.run_snr(30.0, BATCH, seed=99)             # settle the allocator
     torch.cuda.synchronize()
-    launches, out = 0, {}
+    out = {}
     for snr, steps in ((30.0, 2), (UL_MID_SNR, 8)):
         reset_counts()
         t0 = time.perf_counter()
@@ -1523,8 +1573,7 @@ def uplink_full_width(dev) -> tuple:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = launch_counts()
-        _v2_only(counts, f"uplink full width at {snr} dB")
-        launches += counts["turbo_half_iter"]
+        _decode_only(counts, f"uplink full width at {snr} dB")
         bler = errs / np.maximum(reach, 1)
         print(f"uplink 100 PRB MCS 20 EVA 4 rounds UCI 30+1+2 at {snr} dB: "
               f"per-round BLER {[round(float(x), 4) for x in bler]} (errs "
@@ -1532,7 +1581,7 @@ def uplink_full_width(dev) -> tuple:
               f"[cqi, ri, ack] {sim.uci_errs.tolist()} of {reach[0]}; "
               f"{dt / steps * 1e3:.1f} ms a step, {steps * BATCH / dt:.1f} TB "
               f"trials/s ({steps} steps of {BATCH} x 4 rounds, {dt:.3f} s); "
-              f"turbo launches {counts['turbo_half_iter']}", flush=True)
+              f"turbo decode launches {counts[DECODE]}", flush=True)
         out[snr] = (errs, reach, sim.uci_errs.copy())
     errs, reach, uci = out[30.0]
     if int(errs.sum()) or int(uci.sum()):
@@ -1547,10 +1596,10 @@ def uplink_full_width(dev) -> tuple:
     reset_counts()
     sim.step(gen, 10.0 ** (-UL_MID_SNR / 10.0), W)
     torch.cuda.synchronize()
-    per_step = launch_counts()["turbo_half_iter"]
-    print(f"uplink at {UL_MID_SNR} dB: the v2 kernel launches {per_step} "
+    per_step = launch_counts()[DECODE]
+    print(f"uplink at {UL_MID_SNR} dB: the decode kernel launches {per_step} "
           "times in one step", flush=True)
-    return launches, per_step, (sim, UL_MID_SNR)
+    return per_step, (sim, UL_MID_SNR)
 
 
 # tests/test_bler_anchor.py's uplink ladder rows: (mcs, channel, FIR,
@@ -1564,7 +1613,7 @@ _UL_CAMPAIGN = [("awgn4", -2.0), ("awgn10", 2.75), ("awgn16", 7.5),
                 ("eva", 5.5)]
 
 
-def uplink_anchors(dev) -> int:
+def uplink_anchors(dev) -> None:
     reset_counts()
     for mcs, channel, tdc, lo, mid, hi in _UL_ANCHORS:
         sim = Ulsim(UlsimConfig(mcs=mcs, n_rb=25, n_rb_alloc=25,
@@ -1598,8 +1647,7 @@ def uplink_anchors(dev) -> int:
               flush=True)
     counts = launch_counts()
     print(f"launches over the uplink anchors: {counts}", flush=True)
-    _v2_only(counts, "uplink anchors")
-    return counts["turbo_half_iter"]
+    _decode_only(counts, "uplink anchors")
 
 
 # tests/test_pucch.py's operating points: (format, SNR, least and most
@@ -1680,11 +1728,10 @@ _SMALL_PRACH = [("RE level", dict(), (-12.0, -21.0)),
                  (-8.0, -22.0))]
 
 
-def check_small_control(dev) -> int:
+def check_small_control(dev) -> None:
     """Phase 22: every new simulator at 6 or 25 PRB, card against CPU on
     the same draws (made on the CPU from a seed): every decision and
-    error count equal, soft values within the tolerance printed. Returns
-    the v2 launches of Mbmssim's runs."""
+    error count equal, soft values within the tolerance printed."""
     B = 16
     reset_counts()
     cfg = PdcchsimConfig(n_rb=25, n_pdcch=3, L=4, batch=B)
@@ -1781,8 +1828,7 @@ def check_small_control(dev) -> int:
     print(f"small Mbmssim 25 PRB MCS 4, 3 SFN cells, estimated CE: "
           f"{'; '.join(txt)}; equal on card and CPU; launches {counts}",
           flush=True)
-    _v2_only(counts, "small Mbmssim")
-    return counts["turbo_half_iter"]
+    _decode_only(counts, "small Mbmssim")
 
 
 # The MBSFN full width: 100 PRB extended CP holds 10,200 PMCH REs; MCS 22
@@ -1802,53 +1848,30 @@ MBMS_MID_SNR, MBMS_HIGH_SNR = 22.0, 40.0
 MBMS_EST_FLOOR = 0.8
 
 
-def check_turbo_mbsfn(dev, gen, timings) -> dict:
+def check_turbo_mbsfn(dev, gen) -> dict:
     """Phase 23: the v2 kernel at the MBSFN full-width shape against its
     plain version: equal bit for bit."""
-    lin = 3.0 * torch.randn(MBMS_TURBO_ROWS, MBMS_TURBO_N, generator=gen,
-                            device=dev)
-    lp = 3.0 * torch.randn(MBMS_TURBO_ROWS, MBMS_TURBO_N, generator=gen,
-                           device=dev)
-    lin[:, -TURBO_W // 2:] = 1e4
-    lp[:, -TURBO_W // 2:] = 1e4
-    got = half_iteration(lin, lp, TURBO_W, TURBO_U)
-    want = half_iteration_ref(lin, lp, TURBO_W, TURBO_U)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    kernel = functools.partial(half_iteration, lin, lp, TURBO_W, TURBO_U)
-    ms = _time_ms(kernel, 20)
-    plain = _time_ms(lambda: half_iteration_ref(lin, lp, TURBO_W, TURBO_U), 3)
-    n_pos = MBMS_TURBO_ROWS * MBMS_TURBO_N
-    bound = _bound(3 * 4 * n_pos, TURBO_OPS_PER_POS * n_pos)
-    print(f"turbo_half_iter MBSFN [{MBMS_TURBO_ROWS}, {MBMS_TURBO_N}] "
-          f"W={TURBO_W} U={TURBO_U}: max|diff| {err:.3g} (tol {TURBO_ATOL}); "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
-    if not err <= TURBO_ATOL:
-        raise AssertionError(f"turbo kernel at the MBSFN shape disagrees: "
-                             f"{err}")
-    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, **bound}
-    timings.append(("turbo_half_iter MBSFN", kernel, "turbo_half_iter_kernel<",
-                    row))
-    return row
+    return _hold_v2("MBSFN", MBMS_TURBO_ROWS, MBMS_TURBO_N, TURBO_W, TURBO_U,
+                    dev, gen, pad_from=MBMS_TURBO_N - TURBO_W // 2)
 
 
 def _mbms_run(sim, snr: float, steps: int, what: str) -> tuple:
-    """BLER, step time and v2 launches of `steps` steps at `snr`, with the
-    launch counts set to 0 just before and read just after."""
+    """BLER of `steps` steps at `snr`, their time and decode launches
+    printed, with the launch counts set to 0 just before and read just
+    after."""
     reset_counts()
     t0 = time.perf_counter()
     errs, trials = sim.run_snr(snr, steps * BATCH, seed=1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = launch_counts()
-    _v2_only(counts, f"Mbmssim full width {what} at {snr} dB")
+    _decode_only(counts, f"Mbmssim full width {what} at {snr} dB")
     print(f"Mbmssim 100 PRB MCS 22, 3 SFN cells, delays to 0.8 ECP, {what} "
           f"at {snr} dB: BLER {errs / trials:.4f} ({errs}/{trials}), "
           f"{dt / steps * 1e3:.1f} ms a step, {trials / dt:.1f} TB trials/s "
-          f"({steps} steps of {BATCH}, {dt:.3f} s); turbo launches "
-          f"{counts['turbo_half_iter']}", flush=True)
-    return errs / trials, counts["turbo_half_iter"]
+          f"({steps} steps of {BATCH}, {dt:.3f} s); turbo decode launches "
+          f"{counts[DECODE]}", flush=True)
+    return errs / trials
 
 
 def _per_step_launches(sim, snr: float) -> int:
@@ -1856,7 +1879,7 @@ def _per_step_launches(sim, snr: float) -> int:
     reset_counts()
     sim.step(gen, 10.0 ** (-snr / 10.0))
     torch.cuda.synchronize()
-    return launch_counts()["turbo_half_iter"]
+    return launch_counts()[DECODE]
 
 
 def mbms_full_width(dev) -> tuple:
@@ -1864,19 +1887,18 @@ def mbms_full_width(dev) -> tuple:
     MBMS_HIGH_SNR, BLER in [0.05, 0.5] at MBMS_MID_SNR (moved in 1 dB steps
     while outside, at most 4 tries). MBSFN RS estimate: the reference's
     floor, BLER at least MBMS_EST_FLOOR at MBMS_HIGH_SNR. Step times, TB
-    trials/s and the v2 kernel's launches in one step of each."""
+    trials/s and the decode kernel's launches in one step of each."""
     genie = Mbmssim(MbmssimConfig(perfect_ce=True, **MBMS_FULL), device=dev)
     est = Mbmssim(MbmssimConfig(**MBMS_FULL), device=dev)
     genie.run_snr(MBMS_HIGH_SNR, BATCH, seed=99)    # settle the allocator
     torch.cuda.synchronize()
-    bler, launches = _mbms_run(genie, MBMS_HIGH_SNR, 2, "channel known")
+    bler = _mbms_run(genie, MBMS_HIGH_SNR, 2, "channel known")
     if bler:
         raise AssertionError(f"Mbmssim, channel known, at {MBMS_HIGH_SNR} "
                              f"dB: BLER {bler}")
     snr, tried = MBMS_MID_SNR, []
     while True:
-        bler, n = _mbms_run(genie, snr, 8, "channel known")
-        launches += n
+        bler = _mbms_run(genie, snr, 8, "channel known")
         tried.append(snr)
         if 0.05 <= bler <= 0.5 or len(tried) == 4:
             break
@@ -1884,8 +1906,7 @@ def mbms_full_width(dev) -> tuple:
     if not 0.05 <= bler <= 0.5:
         raise AssertionError(f"Mbmssim, channel known: BLER {bler} at {snr} "
                              f"dB (tried {tried}) outside [0.05, 0.5]")
-    floor, n = _mbms_run(est, MBMS_HIGH_SNR, 2, "MBSFN RS estimate")
-    launches += n
+    floor = _mbms_run(est, MBMS_HIGH_SNR, 2, "MBSFN RS estimate")
     if floor < MBMS_EST_FLOOR:
         raise AssertionError(f"Mbmssim, MBSFN RS estimate, at "
                              f"{MBMS_HIGH_SNR} dB: BLER {floor}, below the "
@@ -1893,9 +1914,9 @@ def mbms_full_width(dev) -> tuple:
     per_step = {"channel known": _per_step_launches(genie, snr),
                 "MBSFN RS estimate": _per_step_launches(est, MBMS_HIGH_SNR)}
     print(f"Mbmssim (channel known at {snr} dB, tried {tried}; estimate at "
-          f"{MBMS_HIGH_SNR} dB): the v2 kernel launches {per_step} times in "
+          f"{MBMS_HIGH_SNR} dB): the decode kernel launches {per_step} times in "
           "one step", flush=True)
-    return launches, per_step["channel known"], ((genie, snr),
+    return per_step["channel known"], ((genie, snr),
                                                  (est, MBMS_HIGH_SNR))
 
 
@@ -1912,7 +1933,7 @@ def _sd3(ref: float, n: int) -> float:
     return 3.0 * np.sqrt(max(ref * (1 - ref), 1.0 / n) * 2.0 / n)
 
 
-def control_anchors(dev) -> int:
+def control_anchors(dev) -> None:
     """Phase 25: the reference's anchors on the card, with their
     configurations, trial counts and bands: tests/test_pbch_pdcch_anchor.py
     (PBCH at 25 PRB; PDCCH at 100 PRB, CFI 2, L = 4 and 8, batch 128),
@@ -1998,8 +2019,7 @@ def control_anchors(dev) -> int:
     if not (e1 <= 1 and e3 <= t3 * 0.5):
         raise AssertionError(f"test_mbms anchors: {e1}, {e3}")
     counts = launch_counts()
-    _v2_only(counts, "test_mbms anchors")
-    return counts["turbo_half_iter"]
+    _decode_only(counts, "test_mbms anchors")
 
 
 def _timed_steps(fn, n: int) -> float:
@@ -2290,11 +2310,13 @@ def _hold_mrc(label: str, lead: tuple, A: int, Qm: int, n0_scalar: bool,
 
 
 def _hold_v2(label: str, B: int, N: int, W: int, U: int, dev, gen,
-             timings, pad_from: int | None = None) -> dict:
+             timings=None, pad_from: int | None = None) -> dict:
     """The v2 kernel at lin, lp [B, N] (3 N(0, 1); 1e4 from pad_from on,
     the forced pad after the trellis' end, where the block length is
-    known) against its plain version, bit for bit; its time by CUDA
-    events, queued for phase 16's device time. Returns the row."""
+    known) against its plain version, bit for bit. With timings (where a
+    direct caller launches v2 at this shape) also its time by CUDA events
+    and its timed run's launches, the row queued for phase 16's device
+    time. Returns the row."""
     lin = 3.0 * torch.randn(B, N, generator=gen, device=dev)
     lp = 3.0 * torch.randn(B, N, generator=gen, device=dev)
     if pad_from is not None:
@@ -2304,18 +2326,20 @@ def _hold_v2(label: str, B: int, N: int, W: int, U: int, dev, gen,
     want = half_iteration_ref(lin, lp, W, U)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    kernel = functools.partial(half_iteration, lin, lp, W, U)
-    ms = _time_ms(kernel, 20)
-    plain = _time_ms(lambda: half_iteration_ref(lin, lp, W, U), 3)
-    bound = _bound(3 * 4 * B * N, TURBO_OPS_PER_POS * B * N)
     print(f"turbo_half_iter {label} [{B}, {N}] W={W} U={U}: max|diff| "
-          f"{err:.3g} (tol {TURBO_ATOL}); kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bound['bound_ms']:.5f} ms "
-          f"({bound['bound_by']})", flush=True)
+          f"{err:.3g} (tol {TURBO_ATOL})", flush=True)
     if not err <= TURBO_ATOL:
         raise AssertionError(f"turbo kernel at {label} [{B}, {N}]: {err}")
-    row = {"shape": f"{label} {B:,} x {N:,}", "max_abs_err": err, "ms": ms,
-           "plain_ms": plain, **bound}
+    row = {"shape": f"{label} {B:,} x {N:,}", "max_abs_err": err}
+    if timings is None:
+        return row
+    kernel = functools.partial(half_iteration, lin, lp, W, U)
+    ms, launches = _timed_v2(kernel)
+    plain = _time_ms(lambda: half_iteration_ref(lin, lp, W, U), 3)
+    bound = _bound(3 * 4 * B * N, TURBO_OPS_PER_POS * B * N)
+    print(f"  kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})", flush=True)
+    row.update(ms=ms, plain_ms=plain, timed_launches=launches, **bound)
     timings.append((f"turbo_half_iter {label} {B} x {N}", kernel,
                     "turbo_half_iter_kernel<", row))
     return row
@@ -2337,7 +2361,7 @@ def check_kernels_per_tti(dev, gen, timings) -> list:
         row = _hold_mrc(label, lead, 1, Qm, True, dev, gen, timings)
         held.append(("mrc_llr", (lead + (1,), Qm, True), row))
     row = _hold_v2("fullsim MCS 4", FULL_MCS4_ROWS, FULL_MCS4_N, TURBO_W,
-                   TURBO_U, dev, gen, timings, pad_from=3651)
+                   TURBO_U, dev, gen, pad_from=3651)
     held.append(("turbo_half_iter",
                  (FULL_MCS4_ROWS, FULL_MCS4_N, TURBO_W, TURBO_U), row))
     return held
@@ -2356,31 +2380,52 @@ def _per_step(shapes: dict, steps: int, what: str) -> dict:
     return {k: (v / steps, what) for k, v in shapes.items()}
 
 
+def _v2_shape(key: tuple) -> tuple:
+    """The v2 launch key (B, N, W, U) whose body a decode key (B, K, F, W,
+    U, ...) runs: the trellis' K + 3 positions padded to windows of W."""
+    B, K, _, W, U = key[:5]
+    return (B, -(-(K + 3) // W) * W, W, U)
+
+
+def _hold_v2_of(label: str, key: tuple, dev, gen) -> tuple:
+    """v2 held at the shape whose body the decode key runs, its pad from
+    the trellis' end on. Returns (v2 launch key, row)."""
+    shape = _v2_shape(key)
+    return shape, _hold_v2(label, *shape, dev, gen, pad_from=key[1] + 3)
+
+
 def check_kernels_launched(dev, gen, timings, launched: dict, held: list,
                            where: dict) -> list:
     """Phase 33: every (kernel, shape) that the full-width paths of phases
     29-31 launched and phase 28 did not hold, against its plain version on
     random inputs of that shape: mrc_llr within rtol = atol = 3e-4, v2 bit
-    for bit; each labelled with where[(kernel, shape)], the run it was
-    counted a step of. Only those two kernels and the Viterbi (held in
-    phase 47) may launch there. Returns [(kernel, launch key, row)] as
-    check_kernels_per_tti does."""
+    for bit at the shape of each decode key (the decode kernel itself is
+    held in phase 48); each labelled with where[(kernel, shape)], the run
+    it was counted a step of. Only the decode kernel, mrc_llr and the
+    Viterbi (held in phase 47) may launch there. Returns [(kernel, launch
+    key, row)] as check_kernels_per_tti does."""
     done = {(name, key) for name, key, _ in held}
     out = []
     for name, key in sorted(launched, key=str):
-        if (name, key) in done or name in VITERBI_NAMES:
+        if name in VITERBI_NAMES:
             continue
         label = where.get((name, key), "phases 29-31")
-        if name == "mrc_llr":
+        if name == DECODE:
+            if ("turbo_half_iter", _v2_shape(key)) in done:
+                continue
+            name = "turbo_half_iter"
+            key, row = _hold_v2_of(label, key, dev, gen)
+        elif (name, key) in done:
+            continue
+        elif name == "mrc_llr":
             shape, Qm, n0_scalar = key
             row = _hold_mrc(label, shape[:-1], shape[-1], Qm, n0_scalar, dev,
                             gen, timings)
-        elif name == "turbo_half_iter":
-            row = _hold_v2(label, *key, dev, gen, timings)
         else:
             raise AssertionError(f"{name} {key} launched on the per-TTI "
-                                 "paths: only v2, mrc_llr and the Viterbi "
-                                 "may be")
+                                 "paths: only the decode kernel, mrc_llr and "
+                                 "the Viterbi may be")
+        done.add((name, key))
         out.append((name, key, row))
     return out
 
@@ -2397,7 +2442,8 @@ def fullsim_full_width(dev) -> tuple:
     DCI is found and every TB decodes within the 4 rounds; near
     FULL_MID_SNR (moved in 2 dB steps while round-0 BLER is outside [0.02,
     0.98]) round 1 fails fewer than round 0 and at most 1 % of the DCIs are
-    missed; mrc_llr launches twice a round, v2 launches; TB trials/s on the
+    missed; mrc_llr launches twice a round, the decode kernel launches and
+    v2 does not outside it; TB trials/s on the
     host clock. Returns the launches by (kernel, shape) over both SNRs,
     those a step at the mid SNR, and (sim, mid SNR)."""
     sim = FullChainSim(FullsimConfig(**FULL_LOAD), device=dev)
@@ -2441,8 +2487,9 @@ def fullsim_full_width(dev) -> tuple:
         raise AssertionError(f"fullsim: no HARQ gain {errs}")
     if sim.dci_miss > 0.01 * reach[0]:
         raise AssertionError(f"fullsim: {sim.dci_miss} DCI misses")
-    if counts["mrc_llr"] != 2 * R * steps or counts["turbo_half_iter"] == 0 \
-            or counts["demap_llr"] or counts["turbo_half_iter_v1"] \
+    if counts["mrc_llr"] != 2 * R * steps or counts[DECODE] == 0 \
+            or counts["turbo_half_iter"] or counts["demap_llr"] \
+            or counts["turbo_half_iter_v1"] \
             or counts["viterbi_search"] == 0:
         raise AssertionError(f"fullsim launches {counts}: mrc_llr must "
                              f"launch 2 x {R} rounds x {steps} steps")
@@ -2551,8 +2598,8 @@ def closed_loops_full_width(dev) -> tuple:
         raise AssertionError(f"TddFrameSim at 100 PRB: {out}")
     tdd_shapes = launch_shapes()
     counts = {k: v + launch_counts()[k] for k, v in counts.items()}
-    if min(counts["turbo_half_iter"], counts["mrc_llr"],
-           counts["viterbi_search"]) == 0:
+    if min(counts[DECODE], counts["mrc_llr"],
+           counts["viterbi_search"]) == 0 or counts["turbo_half_iter"]:
         raise AssertionError(f"closed loops: launches {counts}")
     frame = _per_step(tdd_shapes, 1, "TddFrameSim frame at 12 dB")
     return _sum_shapes(shapes, tdd_shapes), {**frame, **per_step}
@@ -2735,10 +2782,10 @@ def check_small_oaisim(dev) -> None:
 OAISIM_ROWS, OAISIM_N, OAISIM_KT = 128 * 5, 6240, 6147
 
 
-def check_turbo_oaisim(dev, gen, timings) -> dict:
+def check_turbo_oaisim(dev, gen) -> dict:
     """Phase 35: v2 at the full-PHY oaisim shape, bit for bit."""
     return _hold_v2("oaisim full PHY", OAISIM_ROWS, OAISIM_N, TURBO_W,
-                    TURBO_U, dev, gen, timings, pad_from=OAISIM_KT)
+                    TURBO_U, dev, gen, pad_from=OAISIM_KT)
 
 
 def oaisim_full_phy(dev) -> tuple:
@@ -2746,18 +2793,18 @@ def oaisim_full_phy(dev) -> tuple:
     OAISIM_FULL: 3 eNBs 500 m apart, 128 static UEs, 100 PRB, MCS 16, EPA,
     4 HARQ rounds, 6 iterations, full buffer, RR, TX power 60 dB) over 4
     frames. Every eNB schedules every TTI (tb_sent + retx = 120), no UE
-    whose geometry SINR is at least 20 dB loses a TB, v2 launches on every
-    TTI at 640 x 6,240 and no other kernel launches. Then 1 eNB at 70 dB
-    loses no TB and retransmits none. Returns (launches by (kernel,
-    shape), v2 launches a TTI, the 3-eNB sim)."""
+    whose geometry SINR is at least 20 dB loses a TB, the decode kernel
+    launches on every TTI at 640 rows of K = 6,144 (v2's 640 x 6,240) and
+    no other kernel launches. Then 1 eNB at 70 dB loses no TB and
+    retransmits none. Returns (decode launches a TTI, the 3-eNB sim)."""
     sim = Oaisim(OaisimConfig(**OAISIM_FULL), device=dev)
     per_tti = []
     tti_phy = sim._tti_phy
 
     def counted(*args):
-        n = launch_counts()["turbo_half_iter"]
+        n = launch_counts()[DECODE]
         err = tti_phy(*args)
-        per_tti.append(launch_counts()["turbo_half_iter"] - n)
+        per_tti.append(launch_counts()[DECODE] - n)
         return err
     sim._tti_phy = counted
     frame_s = []
@@ -2782,7 +2829,7 @@ def oaisim_full_phy(dev) -> tuple:
           f"{out['sum_throughput_mbps']:.2f} Mbit/s; {int(strong.sum())} UEs "
           f"at geometry SINR >= 20 dB lost {lost_strong} TBs; "
           f"{np.mean(frame_s[1:]) / 10 * 1e3:.1f} ms a TTI over frames 2-4 "
-          f"({frame_s[0] / 10 * 1e3:.1f} ms in frame 1); v2 launches a TTI "
+          f"({frame_s[0] / 10 * 1e3:.1f} ms in frame 1); decode launches a TTI "
           f"{min(per_tti)}-{max(per_tti)} (mean {np.mean(per_tti):.1f})",
           flush=True)
     print(f"launches over the 4 frames: {counts}; by shape {shapes}",
@@ -2794,26 +2841,27 @@ def oaisim_full_phy(dev) -> tuple:
         raise AssertionError(f"oaisim full PHY: {lost_strong} TBs lost at "
                              "geometry SINR >= 20 dB")
     if len(per_tti) != 40 or min(per_tti) == 0:
-        raise AssertionError(f"oaisim full PHY: v2 launches a TTI {per_tti}")
-    if set(shapes) != {("turbo_half_iter", (OAISIM_ROWS, OAISIM_N, TURBO_W,
-                                            TURBO_U))}:
+        raise AssertionError(f"oaisim full PHY: decode launches a TTI "
+                             f"{per_tti}")
+    if {name for name, _ in shapes} != {DECODE} or {
+            _v2_shape(key) for _, key in shapes} != {
+                (OAISIM_ROWS, OAISIM_N, TURBO_W, TURBO_U)}:
         raise AssertionError(f"oaisim full PHY launched {shapes}")
     one = Oaisim(OaisimConfig(**dict(OAISIM_FULL, n_enb=1,
                                      tx_power_db=70.0)), device=dev)
     reset_counts()
     out1 = one.run_frames(4)
     torch.cuda.synchronize()
-    shapes = _sum_shapes(shapes, launch_shapes())
     st1 = one.stats
     print(f"oaisim full PHY 1 eNB x 128 UEs at 70 dB, 4 frames: TBs sent "
           f"{int(st1['tb_sent'].sum())}, lost {int(st1['tb_err'].sum())}, "
           f"retransmissions {out1['retx_total']}, sum throughput "
-          f"{out1['sum_throughput_mbps']:.2f} Mbit/s; v2 launches "
-          f"{launch_counts()['turbo_half_iter']}", flush=True)
+          f"{out1['sum_throughput_mbps']:.2f} Mbit/s; decode launches "
+          f"{launch_counts()[DECODE]}", flush=True)
     if st1["tb_err"].sum() or out1["retx_total"] or \
             st1["tb_sent"].sum() != 40:
         raise AssertionError(f"oaisim 1 eNB at 70 dB: {out1}")
-    return shapes, float(np.mean(per_tti)), sim
+    return float(np.mean(per_tti)), sim
 
 
 # The abstraction mode at full width, at phase 36's TX power.
@@ -3044,7 +3092,7 @@ def _check_ladder(res: dict, art: str) -> None:
 
 def _capstone_run(cfg: dict, dev, art: str | None = None):
     """FullStackSim on dev with its PHY timed; (sim, result, timers,
-    seconds, v2 launches by shape)."""
+    seconds, launches by shape)."""
     sim = FullStackSim(CapstoneConfig(**cfg), artifact_dir=art, device=dev)
     timers = _capstone_timers(sim)
     torch.cuda.synchronize()
@@ -3055,23 +3103,24 @@ def _capstone_run(cfg: dict, dev, art: str | None = None):
     return sim, res, timers, time.perf_counter() - t0, launch_shapes()
 
 
-def _only_v2(shapes: dict, what: str) -> None:
-    """The capstones' PHY launches v2 and the Viterbi (the search entry for
-    its DCI searches, the [R, 3, K] entry for its PBCH decodes) and nothing
-    else: the plain demap, as the reference's."""
+def _only_decode(shapes: dict, what: str) -> None:
+    """The capstones' PHY launches the decode kernel and the Viterbi (the
+    search entry for its DCI searches, the [R, 3, K] entry for its PBCH
+    decodes) and nothing else: the plain demap, as the reference's, and no
+    v2 outside the decode kernel."""
     names = {k[0] for k in shapes}
-    if not {"turbo_half_iter", "viterbi_search"} <= names \
-            or not names <= {"turbo_half_iter", *VITERBI_NAMES}:
-        raise AssertionError(f"{what}: launches {shapes}; v2 and the "
-                             "Viterbi must launch and nothing else")
+    if not {DECODE, "viterbi_search"} <= names \
+            or not names <= {DECODE, *VITERBI_NAMES}:
+        raise AssertionError(f"{what}: launches {shapes}; the decode kernel "
+                             "and the Viterbi must launch and nothing else")
 
 
 def check_small_capstone(dev) -> dict:
     """Phase 39: FullStackSim at the reference test's size (25 PRB, 12 dB,
     seed 0; decoder window 240 on both sides) on the CPU and on the card:
     the result (trace, TTIs, PHY runs, every flag), the pcap bytes and the
-    MSC text equal; v2 launches on the card and nothing else. Returns the
-    v2 launches by shape."""
+    MSC text equal; the decode kernel and the Viterbi launch on the card
+    and nothing else. Returns the launches by shape."""
     os.makedirs("build", exist_ok=True)
     cfg = dict(CAPSTONE_LADDER, decoder_window=TURBO_W)
     out = {}
@@ -3089,7 +3138,7 @@ def check_small_capstone(dev) -> dict:
     print(f"small capstone 25 PRB: {a['ttis']} TTIs, PHY runs "
           f"{a['phy_runs']}, {len(a['trace'])} trace events, pcap {len(pa)} "
           f"bytes, MSC {len(ma)} chars; CPU {ta:.1f} s, card {tb:.1f} s; "
-          f"card v2 launches by shape {shapes}", flush=True)
+          f"card launches by shape {shapes}", flush=True)
     for key in a:
         if a[key] != b[key]:
             raise AssertionError(f"small capstone: {key} differs: {a[key]} "
@@ -3097,7 +3146,7 @@ def check_small_capstone(dev) -> dict:
     if pa != pb or ma != mb:
         raise AssertionError("small capstone: pcap or MSC differs")
     _check_ladder(b, f"build/capstone_small_{dev}")
-    _only_v2(shapes, "small capstone")
+    _only_decode(shapes, "small capstone")
     return shapes
 
 
@@ -3108,9 +3157,8 @@ def capstone_full_width(dev) -> tuple:
     the big-NAS ladder (seed 3, 450 B) and the MT attach through paging,
     each with its reference test's assertions. The ms of each DL, UL and
     PRACH PHY TTI and of the ladder's DCI blind decodes and turbo decodes
-    (synced), v2's
-    launches by shape and each run's seconds. Returns
-    (v2 launches by shape over the three runs, the ladder's sim)."""
+    (synced), the launches by shape and each run's seconds. Returns
+    (launches by shape over the three runs, the ladder's sim)."""
     os.makedirs("build", exist_ok=True)
     art = "build/capstone_100"
     # the ladder's DCI blind decodes and turbo decodes (DL and UL), timed
@@ -3137,7 +3185,7 @@ def capstone_full_width(dev) -> tuple:
     total = dict(shapes)
     print(f"capstone 100 PRB ladder: {res['ttis']} TTIs (JAX on the CPU: "
           f"{CAPSTONE_JAX_100['ttis']}), PHY runs {res['phy_runs']} (JAX: "
-          f"{CAPSTONE_JAX_100['phy_runs']}), {dt:.2f} s; v2 launches by "
+          f"{CAPSTONE_JAX_100['phy_runs']}), {dt:.2f} s; launches by "
           f"shape {shapes}", flush=True)
     dl = [a + b for a, b in zip(ms["dl_tx"], ms["dl_rx"])]
     print(f"  DL PHY TTI (transmit + noise + demod, blind receive): "
@@ -3155,7 +3203,7 @@ def capstone_full_width(dev) -> tuple:
             res["phy_runs"] != CAPSTONE_JAX_100["phy_runs"]:
         raise AssertionError(f"capstone 100 PRB: {res['ttis']} TTIs, "
                              f"{res['phy_runs']}")
-    _only_v2(shapes, "capstone 100 PRB")
+    _only_decode(shapes, "capstone 100 PRB")
 
     big, rb, ms_b, dt, shapes = _capstone_run(
         dict(CAPSTONE_BIG_NAS, n_rb=100), dev)
@@ -3167,7 +3215,7 @@ def capstone_full_width(dev) -> tuple:
     if not (rb["registered"] and rb["echo_ok"] and rb["big_nas_ok"]
             and tbs < 250):
         raise AssertionError(f"capstone big NAS: {rb}")
-    _only_v2(shapes, "capstone big NAS")
+    _only_decode(shapes, "capstone big NAS")
 
     mt, rm, ms_m, dt, shapes = _capstone_run(dict(CAPSTONE_MT, n_rb=100),
                                              dev, "build/capstone_100_mt")
@@ -3189,8 +3237,8 @@ def capstone_full_width(dev) -> tuple:
                               t_page % 10):
         raise AssertionError(f"capstone MT attach: page at {t_page} is not "
                              "the UE's paging occasion")
-    _only_v2(shapes, "capstone MT attach")
-    print(f"v2 launches by shape over the three 100 PRB runs: {total}",
+    _only_decode(shapes, "capstone MT attach")
+    print(f"launches by shape over the three 100 PRB runs: {total}",
           flush=True)
     return total, sim
 
@@ -3223,7 +3271,7 @@ def multiue_full_width(dev) -> tuple:
     measured CQI and a 9 dB spread (18 dB, seed 1), then 2 UEs (15 dB,
     seed 2) followed by HandoverPhySim; the gates are the reference tests'
     assertions, and the counts print beside the JAX run's at 100 PRB; ms
-    a TTI. Returns (v2 launches by shape, the PF sim)."""
+    a TTI. Returns (launches by shape, the PF sim)."""
     os.makedirs("build", exist_ok=True)
     pf, res, dt, shapes = _multiue_run(MULTIUE_PF, dev)
     total = dict(shapes)
@@ -3235,7 +3283,7 @@ def multiue_full_width(dev) -> tuple:
           f"{want['pf_cqis']}), DL grants {res['dl_grants_by_ue']}, MCS used "
           f"{mcs} (JAX: {want['pf_mcs']}), FDM UL TTIs {res['fdm_ul_ttis']}, "
           f"collisions {res['collisions']}; {dt:.2f} s, "
-          f"{dt / res['ttis'] * 1e3:.1f} ms a TTI; v2 launches by shape "
+          f"{dt / res['ttis'] * 1e3:.1f} ms a TTI; launches by shape "
           f"{shapes}", flush=True)
     if not (all(res["registered"]) and all(res["echo_ok"])):
         raise AssertionError(f"multi-UE PF: {res}")
@@ -3246,7 +3294,7 @@ def multiue_full_width(dev) -> tuple:
         raise AssertionError(f"multi-UE PF: grants {res['dl_grants_by_ue']}")
     if len(mcs) < 2:
         raise AssertionError(f"multi-UE PF: MCS used {res['dl_mcs_used']}")
-    _only_v2(shapes, "multi-UE PF")
+    _only_decode(shapes, "multi-UE PF")
 
     art = "build/capstone_multiue_100"
     two, res, dt, shapes = _multiue_run(MULTIUE_HO, dev, art)
@@ -3274,24 +3322,25 @@ def multiue_full_width(dev) -> tuple:
             and any("path switched" in e for e in evts)
             and any("post-handover IP packet" in e for e in evts)):
         raise AssertionError(f"handover: {out}")
-    _only_v2(total, "multi-UE and handover")
-    print(f"v2 launches by shape over the multi-UE runs: {total}",
+    _only_decode(total, "multi-UE and handover")
+    print(f"launches by shape over the multi-UE runs: {total}",
           flush=True)
     return total, pf
 
 
-def check_kernels_capstone(dev, gen, timings, launched: dict) -> list:
-    """Every (v2, shape) that phases 39-41 launched against its plain
-    version on random inputs of that shape, bit for bit (batch-1 rows of
-    one code block: the common, dedicated, Msg3 and UL grants, and the
-    MCS that PF's CQIs picked). Returns [(kernel, launch key, row)]."""
-    out = []
+def check_kernels_capstone(dev, gen, launched: dict) -> list:
+    """v2 at the shape of every decode key that phases 39-41 launched
+    against its plain version on random inputs of that shape, bit for bit
+    (batch-1 rows of one code block: the common, dedicated, Msg3 and UL
+    grants, and the MCS that PF's CQIs picked; the decode kernel itself is
+    held in phase 48). Returns [(kernel, launch key, row)]."""
+    out, done = [], set()
     for name, key in sorted(launched, key=str):
-        if name in VITERBI_NAMES:     # held in phase 47
-            continue
-        rows, N, W, U = key
-        row = _hold_v2("capstone", rows, N, W, U, dev, gen, timings)
-        out.append((name, key, row))
+        if name in VITERBI_NAMES or _v2_shape(key) in done:
+            continue                  # the Viterbi's held in phase 47
+        shape, row = _hold_v2_of("capstone", key, dev, gen)
+        done.add(shape)
+        out.append(("turbo_half_iter", shape, row))
     return out
 
 
@@ -3306,7 +3355,7 @@ def observability_flagship(dev) -> dict:
     profile=True prints the time_meas table with dlsim.tx_encode and
     dlsim.round0(chan+rx+decode), each counted once a trial; the step time
     with the profiler on and off, in turns in this call; then trace_dir
-    writes a trace holding the dlsim.step span and turbo_half_iter_kernel
+    writes a trace holding the dlsim.step span and turbo_decode_kernel
     device events. Runs after every other path but phase 16's: the trace
     holds a profiler session."""
     sim = DlsimFading(DlsimFadingConfig(**FLAGSHIP_CFG), device=dev)
@@ -3357,16 +3406,16 @@ def observability_flagship(dev) -> dict:
                 and e.get("cat") == "gpu_user_annotation"]
     kernels_seen = [e for e in events
                     if str(e.get("cat", "")).lower() == "kernel"
-                    and "turbo_half_iter_kernel" in e.get("name", "")]
+                    and "turbo_decode_kernel" in e.get("name", "")]
     print(f"trace {found[0]}: {os.path.getsize(found[0])} bytes, "
           f"{len(events)} events, dlsim.step spans {len(spans)} on the host "
           f"({spans[0]['dur'] / 1e3 if spans else 0:.2f} ms) and "
           f"{len(mirrored)} on the device's timeline, "
-          f"turbo_half_iter_kernel device events {len(kernels_seen)}",
+          f"turbo_decode_kernel device events {len(kernels_seen)}",
           flush=True)
     if len(spans) != 1 or not kernels_seen:
         raise AssertionError("the trace lacks the dlsim.step span or the "
-                             "turbo_half_iter_kernel device events")
+                             "turbo_decode_kernel device events")
     return {"profiler_on_ms": on, "profiler_off_ms": off}
 
 
@@ -3499,12 +3548,12 @@ PAR_AWGN = dict(mcs=4, n_rb=25)            # the distributed command line's
 # Its waterfall on the card: 126/128 errors at -3 dB, none at -2 dB; the
 # sweep stops after the first point without an error.
 PAR_SNRS, PAR_FRAMES = [-3.0, -2.5, -2.0], 128
-# The flagship's (kernel, shape)s held in phase 3.
-# The v2 rows of phases 17, 23 and 35, in the kernels line's order.
+# The v2 shapes held in phases 17, 23 and 35.
 EARLIER_V2_KEYS = [("turbo_half_iter", (rows, n, TURBO_W, TURBO_U))
                    for rows, n in ((UL_TURBO_ROWS, TURBO_W * TURBO_NW),
                                    (MBMS_TURBO_ROWS, MBMS_TURBO_N),
                                    (OAISIM_ROWS, OAISIM_N))]
+# The flagship's (kernel, shape)s held in phase 3.
 PHASE3_KEYS = {("turbo_half_iter", (TURBO_ROWS, TURBO_W * TURBO_NW, TURBO_W,
                                     TURBO_U)),
                ("mrc_llr", ((BATCH, N_DATA, 1), 6, False)),
@@ -3679,7 +3728,7 @@ def parallel_on_card(dev, gen, timings, held_keys: set) -> dict:
     # d. every (kernel, shape) the ranks launched that no phase held
     print(f"44d the ranks' launches: {launched}", flush=True)
     held = _hold_each(launched, held_keys, "44 ranks", dev, gen, timings)
-    for kernel in ("turbo_half_iter", "mrc_llr"):
+    for kernel in (DECODE, "mrc_llr"):
         if not any(k == kernel for k, _ in launched):
             raise AssertionError(f"no rank launched {kernel}")
     shutil.rmtree(work, ignore_errors=True)
@@ -3722,13 +3771,28 @@ def _hold_each(launched: dict, held_keys: set, label: str, dev, gen,
                timings) -> list:
     """Every (kernel, launch key) of launched that no earlier phase held,
     against its plain version (v2 bit for bit, mrc_llr and demap_llr
-    within rtol = atol = 3e-4), labelled with label and its launches; the
-    Viterbi's are held in phase 47. Returns [(kernel, key, row)]."""
+    within rtol = atol = 3e-4), labelled with label and its launches; a
+    decode key holds the decode kernel against the host loop
+    (_hold_turbo_decode, its row kept for the kernels line) and v2 at its
+    shape; the Viterbi's are held in phase 47. v2 at a shape that a direct
+    caller launched is held and timed here whether or not a phase held it
+    before. Returns [(kernel, key, row)] of the rows for the kernels line:
+    the decode kernel's are kept apart, and v2 has rows only at the shapes
+    of direct launches."""
     out = []
     for name, key in sorted(launched, key=str):
-        if (name, key) in held_keys or name in VITERBI_NAMES:
+        if name in VITERBI_NAMES or ((name, key) in held_keys
+                                     and name != "turbo_half_iter"):
             continue
         what = f"{label} x{launched[name, key]}"
+        if name == DECODE:
+            _hold_turbo_decode(key, dev, gen, timings)
+            held_keys.add((name, key))
+            shape = ("turbo_half_iter", _v2_shape(key))
+            if shape not in held_keys and shape not in launched:
+                _hold_v2_of(what, key, dev, gen)
+                held_keys.add(shape)
+            continue
         if name == "mrc_llr":
             shape, Qm, n0_scalar = key
             row = _hold_mrc(what, shape[:-1], shape[-1], Qm, n0_scalar, dev,
@@ -3755,9 +3819,10 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
     """Phase 45: the four cells of openair4g_tpu_torch.bench at bench.py's
     sizes and window counts, each with the launch counts set to 0 just
     before it and read just after. The flagship's first step decodes a
-    TB; the turbo cell's fixed_8iter decode launches v2 2 x 8 times a
-    call at BENCH_TURBO only and its dynamic stop fewer; the front end
-    launches no kernel. Then v2 at BENCH_TURBO bit for bit, mrc_llr at
+    TB; the turbo cell's decodes launch the decode kernel once a call, at
+    BENCH_TURBO's shape only, every row of the fixed_8iter decode runs 8
+    iterations and those of the dynamic stop fewer on the mean; the front
+    end launches no kernel. Then v2 at BENCH_TURBO bit for bit, mrc_llr at
     the flagship cell's shapes within rtol = atol = 3e-4, and every other
     (kernel, shape) the cells launched that no phase held. Returns the
     cells' rows, their steps for phase 16 (label, fn), the launches by
@@ -3778,19 +3843,18 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
         steps += [(f"bench {cell.__name__} {label}", fn)
                   for label, fn in cell_steps.items()]
     per_call = cells["turbo"]["launches"]
-    if per_call["fixed_8iter"] != {"turbo_half_iter": 16.0}:
-        raise AssertionError(f"fixed_8iter decode launches {per_call}")
-    if not 0 < per_call["earlystop_operating"].get(
-            "turbo_half_iter", 0) < 16:
-        raise AssertionError(f"earlystop_operating decode launches "
-                             f"{per_call}")
-    if set(launched["turbo"]) != {("turbo_half_iter", BENCH_TURBO)}:
+    iters = cells["turbo"]["iterations"]
+    if per_call != {mode: {DECODE: 1.0} for mode in per_call}:
+        raise AssertionError(f"turbo cell decode launches {per_call}")
+    if iters["fixed_8iter"] != {"mean": 8.0, "max": 8} or not \
+            0 < iters["earlystop_operating"]["mean"] < 8:
+        raise AssertionError(f"turbo cell iterations run {iters}")
+    if {name for name, _ in launched["turbo"]} != {DECODE} or \
+            {_v2_shape(key) for _, key in launched["turbo"]} != {BENCH_TURBO}:
         raise AssertionError(f"turbo cell launched {launched['turbo']}")
     kernels_of = {c: {name for name, _ in s} for c, s in launched.items()}
-    if kernels_of["flagship"] != {"turbo_half_iter", "mrc_llr",
-                                  "viterbi_search"} or \
-            kernels_of["awgn"] != {"turbo_half_iter"} or \
-            kernels_of["front_end"]:
+    if kernels_of["flagship"] != {DECODE, "mrc_llr", "viterbi_search"} or \
+            kernels_of["awgn"] != {DECODE} or kernels_of["front_end"]:
         raise AssertionError(f"the cells launched {kernels_of}")
     for name, value in (("flagship", cells["flagship"]["value"]),
                         ("awgn", cells["awgn"]["value"]),
@@ -3800,8 +3864,8 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
             raise AssertionError(f"bench {name}: rate {value}")
     print(json.dumps(bench.last_line(list(cells.values()))), flush=True)
 
-    turbo_row = _hold_v2("bench turbo cell", *BENCH_TURBO, dev, gen,
-                         timings, pad_from=BENCH_TURBO_PAD)
+    _hold_v2("bench turbo cell", *BENCH_TURBO, dev, gen,
+             pad_from=BENCH_TURBO_PAD)
     held_keys.add(("turbo_half_iter", BENCH_TURBO))
     for name, key in sorted(launched["flagship"], key=str):
         if name == "mrc_llr":      # held in phase 3 too; timed there
@@ -3810,7 +3874,6 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
                       n0_scalar, dev, gen, [])
     total = _sum_shapes(*launched.values())
     return {"cells": cells, "steps": steps, "launched": total,
-            "turbo_row": turbo_row,
             "held": _hold_each(total, held_keys, "45 bench", dev, gen,
                                timings)}
 
@@ -3910,7 +3973,7 @@ def campaigns(dev, gen, timings, held_keys: set) -> dict:
     torch.cuda.synchronize()
     launched = launch_shapes()
     print(f"46 launches: {launch_counts()}", flush=True)
-    for kernel in ("turbo_half_iter", "mrc_llr", "demap_llr"):
+    for kernel in (DECODE, "turbo_half_iter", "mrc_llr", "demap_llr"):
         if not any(k == kernel for k, _ in launched):
             raise AssertionError(f"no campaign launched {kernel}")
 
@@ -4311,7 +4374,7 @@ def viterbi_on_card(dev, gen, timings, ranks_launched: dict, full_sim,
     against its plain version, timed; then the A/B of _dci_ab. Returns
     {"decode": [((R, K), row)], "search": [(group, keys, row)],
     "by_phase": {phase: {(name, key): launches}}, "ab": the A/B}."""
-    _gather_viterbi()
+    _gather_paths()
     by_phase = {n: dict(c) for n, c in VITERBI_LAUNCHES.items()
                 if c and n != 47}
     for (name, key), n in ranks_launched.items():
@@ -4401,14 +4464,209 @@ def capstone_tti_steps(cap_sim, pf_sim) -> list:
             ("multi-UE 100 PRB TTI, 4 UEs", multiue_tti)]
 
 
+# The decode kernel's rows, {launch key: row}, each key held once
+# (_hold_turbo_decode).
+DECODE_ROWS: dict = {}
+# Float32 operations a decode does beyond its half-iterations, a position
+# and iteration: a1 = sys + (llr - lin), ext2 = llr - lin, the latch's two
+# adds and its compare.
+DECODE_OPS_PER_POS = 6
+
+
+def _decode_inputs(B: int, K: int, F: int, crc_kind: str, dev, gen):
+    """[B, 3, K + 4] LLRs of B code blocks drawn and turbo coded on the
+    card: F filler zeros (their d0/d1 LLRs +1e4, as the rate matcher
+    leaves them), a random payload and its CRC; LLR = 2 (1 - 2 d) + sigma
+    N(0, 1), sigma from 1.6 to 3.6 over the rows, so that the batch mixes
+    blocks that latch early, late and never."""
+    payload = torch.randint(0, 2, (B, K - F - 24), generator=gen,
+                            device=dev, dtype=torch.int32)
+    bits = torch.cat([payload.new_zeros(B, F), payload,
+                      crc_device(payload, crc_kind).to(torch.int32)], dim=1)
+    d = turbo_mod.turbo_encode_device(bits, turbo_mod.qpp_interleaver(K))
+    sigma = torch.linspace(1.6, 3.6, B, device=dev)[:, None, None]
+    llr = 2.0 * (1.0 - 2.0 * d.to(torch.float32)) + sigma * torch.randn(
+        d.shape, generator=gen, device=dev)
+    llr[:, :2, :F] = 1e4
+    return llr
+
+
+def _decode_bound(key: tuple, iters) -> dict:
+    """The least time of a decode at key: llr_d, the permutation and its
+    inverse and the CRC rows read once, bits, flags and iteration counts
+    written once; the operations of the iterations these inputs ran."""
+    B, K, F = key[:3]
+    N = _v2_shape(key)[1]
+    n_bytes = 4 * (3 * B * (K + 4) + 2 * K + (K - F)) + B * (4 * K + 5)
+    n_ops = (2 * TURBO_OPS_PER_POS * N + DECODE_OPS_PER_POS * K) \
+        * int(iters.sum())
+    return _bound(n_bytes, n_ops)
+
+
+def _hold_turbo_decode(key: tuple, dev, gen, timings: list) -> dict:
+    """The decode kernel at a launch key (B, K, F, W, U, n_iter, CRC,
+    dynamic_stop) against the host loop (turbo_decode_ref, its
+    half-iterations on the v2 kernel), on _decode_inputs, in both stop
+    modes: bits, flags and iterations run torch.equal, one launch a call.
+    Its time (and the loop's) by CUDA events at the key's own mode, queued
+    for phase 16's device time; the bound from this run's iterations. The
+    launches are not a path's. Returns the row, kept in DECODE_ROWS."""
+    if key in DECODE_ROWS:
+        return DECODE_ROWS[key]
+    B, K, F, W, U, n_iter, crc_kind, dyn = key
+    with _not_a_path():
+        llr = _decode_inputs(B, K, F, crc_kind, dev, gen)
+        cfgs = {d: turbo_mod.TurboDecoderConfig(
+            K=K, F=F, n_iter=n_iter, window=W, warmup=U, crc_kind=crc_kind,
+            dynamic_stop=d) for d in (True, False)}
+        ran = {}
+        for d, cfg in cfgs.items():
+            got_it = torch.zeros(B, dtype=torch.int32, device=dev)
+            want_it = torch.zeros_like(got_it)
+            n = launch_counts()[DECODE]
+            got = turbo_mod.turbo_decode(llr, cfg, got_it)
+            if launch_counts()[DECODE] != n + 1:
+                raise AssertionError(f"48 {key}: not one launch a decode")
+            want = turbo_mod.turbo_decode_ref(llr, cfg, want_it)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])
+                    and torch.equal(got_it, want_it)):
+                raise AssertionError(
+                    f"48 decode kernel at {key}, dynamic_stop={d}: "
+                    f"{int((got[0] != want[0]).sum())} bits, "
+                    f"{int((got[1] != want[1]).sum())} flags, "
+                    f"{int((got_it != want_it).sum())} iteration counts "
+                    "differ from the host loop's")
+            ran[d] = got_it
+        cfg = cfgs[dyn]
+        kernel = functools.partial(turbo_mod.turbo_decode, llr, cfg)
+        ms = _time_ms(kernel, 5)
+        plain = _time_ms(lambda: turbo_mod.turbo_decode_ref(llr, cfg), 3)
+    bound = _decode_bound(key, ran[dyn])
+    n_ok = int(got[1].sum())
+    print(f"turbo_decode {key}: bits, flags and iterations equal to the "
+          f"host loop's in both modes ({n_ok}/{B} latched; mean iterations "
+          f"{ran[dyn].double().mean().item():.2f} at dynamic_stop={dyn}); "
+          f"kernel {ms:.4f} ms, loop {plain:.4f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})", flush=True)
+    row = {"shape": f"{B:,} rows of K = {K:,}, F = {F}, W = {W}, U = {U}, "
+           f"{n_iter} iterations, {crc_kind}, dynamic_stop {dyn}",
+           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+           "mean_iterations": ran[dyn].double().mean().item(), **bound}
+    timings.append((f"turbo_decode {key}", kernel, DECODE_KERNEL, row))
+    DECODE_ROWS[key] = row
+    return row
+
+
+def turbo_decode_on_card(dev, gen, timings, ranks_launched: dict) -> dict:
+    """Phase 48: the decode kernel at every key that phases 4-47 launched
+    (the ranks' of phase 44 added), against the host loop, bit for bit in
+    both stop modes (_hold_turbo_decode); once against the all-plain loop
+    (turbo_decode_ref with half_iteration_ref) at a small key; the
+    flagship's decode under torch.cuda.set_sync_debug_mode("error"), which
+    raises at any host sync; the flagship group's decode at fixed
+    iterations against the host loop's v2 launches, by device time.
+    Returns {"launched": {key: {phase: launches}}}."""
+    _gather_paths()
+    launched = {}
+    for phase, c in sorted(DECODE_LAUNCHES.items(), key=lambda x: str(x[0])):
+        if phase == 48:
+            continue
+        for (_, key), n in c.items():
+            launched.setdefault(key, {})[phase] = n
+    for (name, key), n in ranks_launched.items():
+        if name == DECODE:
+            by_phase = launched.setdefault(key, {})
+            by_phase[44] = by_phase.get(44, 0) + n
+    print(f"48 the decode's launch keys on the paths: {len(launched)}; "
+          f"launches by phase {_by_phase_totals(launched)}", flush=True)
+    flagship_key = max((key for key, by_phase in launched.items()
+                        if 5 in by_phase), key=lambda key: key[0])
+    for key in sorted(launched, key=str):
+        _hold_turbo_decode(key, dev, gen, timings)
+
+    small = (16, 1024, 0, TURBO_W, TURBO_U, 8, "crc24a", True)
+    llr = _decode_inputs(*small[:3], small[6], dev, gen)
+    plain_half = turbo_mod.half_iteration
+    with _not_a_path():
+        for dyn in (True, False):
+            cfg = turbo_mod.TurboDecoderConfig(
+                K=small[1], F=small[2], n_iter=small[5], window=small[3],
+                warmup=small[4], crc_kind=small[6], dynamic_stop=dyn)
+            got = turbo_mod.turbo_decode(llr, cfg)
+            turbo_mod.half_iteration = half_iteration_ref
+            try:
+                want = turbo_mod.turbo_decode_ref(llr, cfg)
+            finally:
+                turbo_mod.half_iteration = plain_half
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"48 decode kernel at {small}, "
+                                     f"dynamic_stop={dyn}: differs from the "
+                                     "all-plain loop")
+        print(f"48 decode kernel at {small[:7]}: equal to the all-plain loop "
+              f"(half_iteration_ref) in both modes ({int(got[1].sum())}/16 "
+              "latched)", flush=True)
+
+        B, K, F, W, U, n_iter, crc_kind, dyn = flagship_key
+        llr = _decode_inputs(B, K, F, crc_kind, dev, gen)
+        cfg = turbo_mod.TurboDecoderConfig(K=K, F=F, n_iter=n_iter, window=W,
+                                           warmup=U, crc_kind=crc_kind,
+                                           dynamic_stop=dyn)
+        turbo_mod.turbo_decode(llr, cfg)          # the plans uploaded
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok = turbo_mod.turbo_decode(llr, cfg)[1]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"48 the flagship's decode {flagship_key} under "
+              f"set_sync_debug_mode('error'): no host sync ({int(ok.sum())}/"
+              f"{B} latched)", flush=True)
+
+        # The flagship group at n_iter fixed iterations: the decode
+        # kernel's device time against the 2 n_iter v2 launches that the
+        # host loop makes at the shape whose body it runs (the loop's
+        # other kernels left out), by torch.profiler, into the flagship
+        # key's row.
+        fixed = turbo_mod.TurboDecoderConfig(
+            K=K, F=F, n_iter=n_iter, window=W, warmup=U, crc_kind=crc_kind,
+            dynamic_stop=False)
+        shape = _v2_shape(flagship_key)
+        lin = 3.0 * torch.randn(*shape[:2], generator=gen, device=dev)
+        lp = 3.0 * torch.randn(*shape[:2], generator=gen, device=dev)
+        (dec_ms, _), (v2_ms, _) = _device_ms(
+            [(lambda: turbo_mod.turbo_decode(llr, fixed), DECODE_KERNEL),
+             (lambda: half_iteration(lin, lp, W, U),
+              "turbo_half_iter_kernel<")], 5)
+    DECODE_ROWS[flagship_key].update(
+        fixed_iterations_device_ms=dec_ms,
+        v2_launches_of_the_fixed_loop_device_ms=2 * n_iter * v2_ms)
+    print(f"48 the flagship group at {n_iter} fixed iterations: the decode "
+          f"kernel {dec_ms:.4f} ms device, the loop's {2 * n_iter} v2 "
+          f"launches at {shape[:2]} {2 * n_iter * v2_ms:.4f} ms "
+          f"({v2_ms:.4f} ms each)", flush=True)
+    return {"launched": launched}
+
+
+def _by_phase_totals(launched: dict) -> dict:
+    out = {}
+    for by_phase in launched.values():
+        for phase, n in by_phase.items():
+            out[phase] = out.get(phase, 0) + n
+    return dict(sorted(out.items(), key=lambda x: str(x[0])))
+
+
 def _phase(n: int, title: str, fn, *args):
     """Run one phase, with its number, title and seconds printed."""
     print(f"== phase {n}: {title}", flush=True)
-    _gather_viterbi()
+    _gather_paths()
     _GATHERED["phase"] = n
     t0 = time.perf_counter()
     out = fn(*args)
-    _gather_viterbi()
+    _gather_paths()
     print(f"== phase {n} done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return out
@@ -4434,7 +4692,8 @@ def main() -> None:
     name = None
     for line in info["ptxas"].splitlines():
         m = re.search(r"(turbo_half_iter_kernel|turbo_half_iter_v1_kernel|"
-                      r"mrc_llr_kernel|demap_llr_kernel)I((?:Li\d+E)+)", line)
+                      r"turbo_decode_kernel|mrc_llr_kernel|demap_llr_kernel)"
+                      r"I((?:Li\d+E)+)", line)
         if m:
             name = f"{m[1]}<{','.join(re.findall(r'Li(\d+)E', m[2]))}>"
         elif "viterbi_kernel" in line or "viterbi_search_kernel" in line:
@@ -4464,24 +4723,22 @@ def main() -> None:
     _phase(12, "small SISO inputs, card against CPU", check_small_siso, dev)
     dd, dd_sim = _phase(13, "dd 1x2 HARQ full width", dd_full_width, dev)
     _phase(14, "SISO fidelity anchors", fidelity_anchors, dev)
-    n_awgn_turbo = _phase(15, "DlsimAwgn and the dlsim command line",
-                          entry_point, dev)
-    turbo_ul = _phase(17, "turbo v2 kernel at the uplink shape",
-                      check_turbo_uplink, dev, gen, timings)
-    n_ul = _phase(18, "small uplink inputs, card against CPU",
-                  check_small_uplink, dev)
-    n_full, ul_per_step, ul_sim = _phase(19, "uplink full width",
-                                         uplink_full_width, dev)
-    n_ul += n_full + _phase(20, "uplink anchors", uplink_anchors, dev)
+    _phase(15, "DlsimAwgn and the dlsim command line", entry_point, dev)
+    _phase(17, "turbo v2 kernel at the uplink shape", check_turbo_uplink,
+           dev, gen)
+    _phase(18, "small uplink inputs, card against CPU", check_small_uplink,
+           dev)
+    ul_per_step, ul_sim = _phase(19, "uplink full width", uplink_full_width,
+                                 dev)
+    _phase(20, "uplink anchors", uplink_anchors, dev)
     _phase(21, "pucchsim", pucch_points, dev)
-    n_mb = _phase(22, "small control and sync inputs, card against CPU",
-                  check_small_control, dev)
-    turbo_mb = _phase(23, "turbo v2 kernel at the MBSFN shape",
-                      check_turbo_mbsfn, dev, gen, timings)
-    n_full_mb, mb_per_step, mb_sim = _phase(24, "Mbmssim full width",
-                                            mbms_full_width, dev)
-    n_mb += n_full_mb + _phase(25, "control and sync anchors",
-                               control_anchors, dev)
+    _phase(22, "small control and sync inputs, card against CPU",
+           check_small_control, dev)
+    _phase(23, "turbo v2 kernel at the MBSFN shape", check_turbo_mbsfn, dev,
+           gen)
+    mb_per_step, mb_sim = _phase(24, "Mbmssim full width", mbms_full_width,
+                                 dev)
+    _phase(25, "control and sync anchors", control_anchors, dev)
     steps_20mhz = _phase(26, "sync and PRACH at 20 MHz", sync_prach_20mhz,
                          dev)
     _phase(27, "small per-TTI inputs, card against CPU", check_small_per_tti,
@@ -4505,9 +4762,9 @@ def main() -> None:
                    {k: what for k, (_, what) in tti_per_step.items()})
     _phase(34, "small oaisim inputs, card against CPU", check_small_oaisim,
            dev)
-    turbo_oai = _phase(35, "turbo v2 kernel at the full-PHY oaisim shape",
-                       check_turbo_oaisim, dev, gen, timings)
-    oai_shapes, oai_per_tti, oai_sim = _phase(
+    _phase(35, "turbo v2 kernel at the full-PHY oaisim shape",
+           check_turbo_oaisim, dev, gen)
+    oai_per_tti, oai_sim = _phase(
         36, "full-PHY oaisim full width", oaisim_full_phy, dev)
     oai_frames = [("oaisim full PHY full width", oai_sim)] + _phase(
         37, "abstraction oaisim full width", oaisim_abstraction_full, dev)
@@ -4519,7 +4776,7 @@ def main() -> None:
     cap[41], pf_sim = _phase(41, "multi-UE capstones and handover full width",
                              multiue_full_width, dev)
     held_cap = _phase(41, "v2 at every shape the capstones launched",
-                      check_kernels_capstone, dev, gen, timings,
+                      check_kernels_capstone, dev, gen,
                       _sum_shapes(*cap.values()))
     modem = _phase(43, "the runtime at 20 MHz", runtime_20mhz, dev)
     # every (kernel, shape) a row of the kernels line holds so far
@@ -4534,6 +4791,8 @@ def main() -> None:
     vit = _phase(47, "the Viterbi kernel at every shape the paths launched",
                  viterbi_on_card, dev, gen, timings, par["launched"],
                  full_sim, cap_sim, pf_sim)
+    dec = _phase(48, "the decode kernel at every key the paths launched",
+                 turbo_decode_on_card, dev, gen, timings, par["launched"])
     obs = _phase(42, "observability on the flagship", observability_flagship,
                  dev)
     cap_steps = capstone_tti_steps(cap_sim, pf_sim)
@@ -4544,13 +4803,23 @@ def main() -> None:
         oai_frames, [label for label, _ in cap_steps])
 
     per_step = {k: v / flagship_steps for k, v in counts.items()}
+    # The v2 kernel's rows: at the flagship's shape, where phase 3 times it
+    # (no path launches it there, the decode kernel runs its body: its
+    # launches are those of its timed run, counted, as v1's are), and at
+    # each shape a direct caller launched (phase 46's turbo roofline), with
+    # the paths' launches. Phases 17, 23, 28, 33, 35, 41 and 44-46 hold it
+    # bit for bit at every other shape whose body a decode key runs, with
+    # no row.
+    v2 = dict(name="turbo_half_iter", route="cuda",
+              source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
+              replaces="openair4g_tpu/ops/turbo_pallas.py:219",
+              body_runs_in=DECODE)
     rows = [
-        dict(name="turbo_half_iter", route="cuda",
-             source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
-             replaces="openair4g_tpu/ops/turbo_pallas.py:219",
-             launches=counts["turbo_half_iter"] + dd["turbo_half_iter"]
-             + n_awgn_turbo, launches_per_step=per_step["turbo_half_iter"],
-             **turbo),
+        dict(v2, launches_by_phase={}, launches_are="its own timed run: no "
+             "path launches it at this shape, the decode kernel runs its "
+             "body",
+             shape="flagship 1,408 x 5,760", **turbo,
+             share=turbo["bound_ms"] / turbo["device_ms"]),
         dict(name="turbo_half_iter_v1", route="cuda",
              source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
              replaces="openair4g_tpu/ops/turbo_pallas.py:70",
@@ -4566,45 +4835,24 @@ def main() -> None:
              replaces="openair4g_tpu/ops/equalize_llr.py:138",
              launches=n_demap, launches_per_step=per_step["demap_llr"],
              **demap),
-        dict(name="turbo_half_iter", shape="uplink 1,024 x 5,760",
-             route="cuda",
-             source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
-             replaces="openair4g_tpu/ops/turbo_pallas.py:219",
-             launches=n_ul, launches_per_step=ul_per_step,
-             uplink_step_device_ms=ul_dev["step_device_ms"],
-             uplink_kernel_share=ul_dev["kernel_share"], **turbo_ul),
-        dict(name="turbo_half_iter", shape="MBSFN 1,024 x 6,000",
-             route="cuda",
-             source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
-             replaces="openair4g_tpu/ops/turbo_pallas.py:219",
-             launches=n_mb, launches_per_step=mb_per_step,
-             mbms_step_device_ms=mb_dev["step_device_ms"],
-             mbms_kernel_share=mb_dev["kernel_share"], **turbo_mb),
     ]
-    # This slice's rows: one a (kernel, shape) held in phase 28 or 33, with
-    # the launches of that shape alone, by phase, and a step of the first
-    # run where it ran; the flagship load's v2 row with its step's device
-    # time and v2's share of it.
-    sources = {"turbo_half_iter": ("turbo_half_iter.cu",
-                                   "turbo_pallas.py:219"),
-               "mrc_llr": ("mrc_llr.cu", "equalize_llr.py:40"),
+    # This slice's rows: one a (kernel, shape) held in phase 28 or 33, mrc
+    # with the launches of that shape alone, by phase, and a step of the
+    # first run where it ran.
+    sources = {"mrc_llr": ("mrc_llr.cu", "equalize_llr.py:40"),
                "demap_llr": ("mrc_llr.cu", "equalize_llr.py:138")}
     # the first row of each (kernel, shape): later phases' launches go to it
     row_of = {key: rows[0 if key[0] == "turbo_half_iter" else 2]
               for key in PHASE3_KEYS}
-    row_of.update(zip(EARLIER_V2_KEYS[:2], rows[4:6]))
     for name, key, row in held:
+        if name == "turbo_half_iter":
+            continue
         by_phase = {n: c[name, key] for n, c in tti.items()
                     if (name, key) in c}
         extra = {}
         if (name, key) in tti_per_step:
             extra["launches_per_step"], extra["step_of"] = \
                 tti_per_step[name, key]
-        if name == "turbo_half_iter" and (name, key) in per_step_29:
-            extra.update(fullsim_step_device_ms=full_dev["step_device_ms"],
-                         fullsim_kernel_device_ms_per_step=full_dev[
-                             "kernel_device_ms_per_step"],
-                         fullsim_kernel_share=full_dev["kernel_share"])
         src, tpu = sources[name]
         rows.append(dict(
             name=name, route="cuda", source=f"openair4g_tpu_torch/csrc/{src}",
@@ -4612,84 +4860,105 @@ def main() -> None:
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
         row_of.setdefault((name, key), rows[-1])
-    # The system slice's row: v2 at the full-PHY oaisim shape, with phase
-    # 36's launches at it, those a TTI, the device time a TTI of phases 36
-    # and 37 and v2's share of phase 36's.
-    oai, oai_label = oai_dev, oai_frames[0][0]
-    rows.append(dict(
-        name="turbo_half_iter", route="cuda",
-        source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
-        replaces="openair4g_tpu/ops/turbo_pallas.py:219",
-        launches=oai_shapes[("turbo_half_iter", (OAISIM_ROWS, OAISIM_N,
-                                                 TURBO_W, TURBO_U))],
-        launches_per_tti=oai_per_tti,
-        oaisim_tti_device_ms=oai[oai_label]["tti_device_ms"],
-        oaisim_kernel_device_ms_per_tti=oai[oai_label][
-            "kernel_device_ms_per_tti"],
-        oaisim_kernel_share=oai[oai_label]["kernel_share"],
-        oaisim_abstraction_tti_device_ms={
-            label: oai[label]["tti_device_ms"] for label, _ in oai_frames[1:]},
-        **turbo_oai, share=turbo_oai["bound_ms"] / turbo_oai["device_ms"]))
-    row_of[EARLIER_V2_KEYS[2]] = rows[-1]
-    # The capstone slice's rows: v2 at each shape the capstones launched,
-    # with its launches by phase (39-41), the device time of a 100 PRB
-    # capstone DL PHY TTI and a 4-UE multi-UE TTI, the SoftModem's
-    # deadline count and the flagship step with the profiler on and off.
-    extra = {"capstone_dl_tti_device_ms": step_dev[cap_steps[0][0]][
-                 "device_ms"],
-             "multiue_tti_device_ms": step_dev[cap_steps[1][0]]["device_ms"],
-             "softmodem_missed": modem["missed"],
-             "flagship_step_profiler_on_ms": obs["profiler_on_ms"],
-             "flagship_step_profiler_off_ms": obs["profiler_off_ms"]}
-    for name, key, row in held_cap:
-        by_phase = {n: c[name, key] for n, c in cap.items() if (name, key) in c}
-        rows.append(dict(
-            name=name, route="cuda",
-            source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
-            replaces="openair4g_tpu/ops/turbo_pallas.py:219",
-            launches=sum(by_phase.values()), launches_by_phase=by_phase,
-            **extra, **row, share=row["bound_ms"] / row["device_ms"]))
-        row_of.setdefault((name, key), rows[-1])
-    # The bench's row: v2 at the turbo cell's shape, with its launches a
-    # decode call and the two decodes' device time. Then the rows of each
-    # (kernel, shape) that the ranks of phase 44, the bench (45) and the
-    # campaigns (46) launched and held, with those launches; their
-    # launches at a shape an earlier row holds go to that row.
-    by_step = {label: step_dev[label]["device_ms"]
-               for label, _ in ported["steps"]}
-    turbo_cell = ported["cells"]["turbo"]
-    n = ported["launched"]["turbo_half_iter", BENCH_TURBO]
-    rows.append(dict(
-        name="turbo_half_iter", route="cuda",
-        source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
-        replaces="openair4g_tpu/ops/turbo_pallas.py:219", launches=n,
-        launches_by_phase={45: n},
-        launches_per_decode=turbo_cell["launches"],
-        decode_device_ms={mode: by_step[f"bench turbo {mode}"]
-                          for mode in turbo_cell["value"]},
-        **ported["turbo_row"],
-        share=ported["turbo_row"]["bound_ms"]
-        / ported["turbo_row"]["device_ms"]))
-    row_of["turbo_half_iter", BENCH_TURBO] = rows[-1]
+    # The rows of each (kernel, shape) that the ranks of phase 44, the
+    # bench (45) and the campaigns (46) launched and held, with those
+    # launches; their launches at a shape an earlier row holds go to that
+    # row. v2 launches there only for direct callers (46's roofline), each
+    # such shape held and timed in its phase; the decode's launches go to
+    # the decode's rows.
     for phase, res in ((44, par), (45, ported), (46, camp)):
-        own = {("turbo_half_iter", BENCH_TURBO)} if phase == 45 else set()
         for name, key, row in res["held"]:
-            src, tpu = sources[name]
-            n = res["launched"][name, key]
-            rows.append(dict(
-                name=name, route="cuda",
-                source=f"openair4g_tpu_torch/csrc/{src}",
-                replaces=f"openair4g_tpu/ops/{tpu}", launches=n,
-                launches_by_phase={phase: n}, **row,
-                share=row["bound_ms"] / row["device_ms"]))
+            if name == "turbo_half_iter":
+                rows.append(dict(v2, launches=0, launches_by_phase={},
+                                 launches_are="direct "
+                                 "callers on the paths; the decode kernel "
+                                 "runs its body", **row,
+                                 share=row["bound_ms"] / row["device_ms"]))
+            else:
+                src, tpu = sources[name]
+                rows.append(dict(
+                    name=name, route="cuda",
+                    source=f"openair4g_tpu_torch/csrc/{src}",
+                    replaces=f"openair4g_tpu/ops/{tpu}", launches=0,
+                    launches_by_phase={}, **row,
+                    share=row["bound_ms"] / row["device_ms"]))
             row_of[name, key] = rows[-1]
-            own.add((name, key))
         for key, n in res["launched"].items():
-            if key not in own and key[0] not in VITERBI_NAMES:
-                row = row_of[key]
-                row["launches"] += n
-                by_phase = row.setdefault("launches_by_phase", {})
-                by_phase[phase] = by_phase.get(phase, 0) + n
+            if key[0] in VITERBI_NAMES or key[0] == DECODE:
+                continue
+            row = row_of[key]
+            row["launches"] += n
+            by_phase = row.setdefault("launches_by_phase", {})
+            by_phase[phase] = by_phase.get(phase, 0) + n
+    # The decode kernel's rows, one a key the paths launched (phases 4-47
+    # and 16's and 42's runs of the same paths; phase 48 holds each), with
+    # the launches by phase and, where a path's step was profiled in phase
+    # 16, that step's device time and the kernel's share of it.
+    _gather_paths()
+    launched = {key: dict(by_phase) for key, by_phase in
+                dec["launched"].items()}
+    for phase in (42, 16):
+        for (_, key), n in DECODE_LAUNCHES.get(phase, {}).items():
+            launched.setdefault(key, {})[phase] = n
+    for key in [key for key in launched if key not in DECODE_ROWS]:
+        late = []               # none expected: 42 and 16 rerun held paths
+        row = _hold_turbo_decode(key, dev, gen, late)
+        with _not_a_path():
+            (row["device_ms"], _), = _device_ms([late[0][1:3]], 5)
+    steps_of = [
+        (5, None, {"launches_per_flagship_step": None}),
+        (19, None,
+         {"launches_per_uplink_step": ul_per_step,
+          "uplink_step_device_ms": ul_dev["step_device_ms"],
+          "uplink_kernel_share": ul_dev["kernel_share"]}),
+        (24, (MBMS_TURBO_ROWS, MBMS_TURBO_N, TURBO_W, TURBO_U),
+         {"launches_per_mbms_step": mb_per_step,
+          "mbms_step_device_ms": mb_dev["step_device_ms"],
+          "mbms_kernel_share": mb_dev["kernel_share"]}),
+        (29, (TURBO_ROWS, TURBO_W * TURBO_NW, TURBO_W, TURBO_U),
+         {"fullsim_step_device_ms": full_dev["step_device_ms"],
+          "fullsim_kernel_device_ms_per_step": full_dev[
+              "kernel_device_ms_per_step"],
+          "fullsim_kernel_share": full_dev["kernel_share"]}),
+        (36, (OAISIM_ROWS, OAISIM_N, TURBO_W, TURBO_U),
+         {"launches_per_oaisim_tti": oai_per_tti,
+          "oaisim_tti_device_ms": oai_dev[oai_frames[0][0]][
+              "tti_device_ms"],
+          "oaisim_kernel_device_ms_per_tti": oai_dev[oai_frames[0][0]][
+              "kernel_device_ms_per_tti"],
+          "oaisim_kernel_share": oai_dev[oai_frames[0][0]]["kernel_share"],
+          "oaisim_abstraction_tti_device_ms": {
+              label: oai_dev[label]["tti_device_ms"]
+              for label, _ in oai_frames[1:]}}),
+        (40, None,
+         {"capstone_dl_tti_device_ms": step_dev[cap_steps[0][0]][
+              "device_ms"],
+          "multiue_tti_device_ms": step_dev[cap_steps[1][0]]["device_ms"],
+          "softmodem_missed": modem["missed"],
+          "flagship_step_profiler_on_ms": obs["profiler_on_ms"],
+          "flagship_step_profiler_off_ms": obs["profiler_off_ms"]}),
+        (45, BENCH_TURBO,
+         {"decode_device_ms": {mode: step_dev[f"bench turbo {mode}"][
+             "device_ms"] for mode in ported["cells"]["turbo"]["value"]}}),
+    ]
+    for key, by_phase in sorted(launched.items(), key=str):
+        row = DECODE_ROWS[key]
+        extra = {}
+        for phase, shape, figures in steps_of:
+            if phase in by_phase and shape in (None, _v2_shape(key)):
+                extra.update(figures)
+        if "launches_per_flagship_step" in extra:
+            extra["launches_per_flagship_step"] = by_phase[5] / flagship_steps
+        rows.append(dict(
+            name=DECODE, route="cuda",
+            source="openair4g_tpu_torch/csrc/turbo_half_iter.cu",
+            replaces="openair4g_tpu/ops/turbo.py:553 (the lax.while_loop "
+                     "around openair4g_tpu/ops/turbo_pallas.py:219)",
+            key=list(key), launches=sum(by_phase.values()),
+            launches_by_phase=by_phase, **extra, **row,
+            share=row["bound_ms"] / row["device_ms"]))
+    if not any(row["name"] == DECODE and row["launches"] for row in rows):
+        raise AssertionError("the decode kernel never launched on a path")
     # The Viterbi's rows: the [R, 3, K] entry at each (R, K) it launched or
     # a search decodes, with its launches by phase; the search entry at
     # each (B, W, K, candidates), with the launches of its candidate sets
@@ -4722,7 +4991,6 @@ def main() -> None:
                      "loop of openair4g_tpu/phy/pdcch.py:211",
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
-    rows[0]["shape"] = "flagship 1,408 x 5,760"
     for row in rows:        # no one PyTorch call computes any of these
         row["library_ms"] = None
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",

@@ -14,10 +14,12 @@ Cells, at bench.py's sizes, window counts and best-of-windows:
 - turbo_decode_mbit_per_s (bench.py:123-146): DlschCodec(MCS 10, 50 PRB,
   8 iterations) decoding batch 512 of LLRs (1 - 2e) 4 + N(0, 1). TBS 7,992
   segments into 2 blocks of K = 4,032 (not K = 6,144, as bench.py's
-  docstring says), so one decode runs the v2 kernel on 1,024 rows of N =
-  4,080 (17 windows of W = 240). Two numbers: fixed_8iter (dynamic_stop
-  off: 2 x 8 launches a decode) and earlystop_operating (dynamic stop, one
-  host sync an iteration); 3 windows of 5 decodes each.
+  docstring says), so one decode is one launch of the decode kernel on
+  1,024 rows of N = 4,080 (17 windows of W = 240). Two numbers:
+  fixed_8iter (dynamic_stop off: every row runs 8 iterations) and
+  earlystop_operating (each row leaves at its CRC latch); 3 windows of 5
+  decodes each. Beside them, the decode's launches, and the iterations
+  its rows ran, read from the device after the timed windows.
 - ofdm_equalize_msamples_per_s (bench.py:149-201): at 100 PRB, batch 32,
   one pass is a draw of noise samples, OFDM demodulation, the joint
   estimate, data-RE extraction, MRC equalization and the plain 16QAM
@@ -202,7 +204,8 @@ def turbo(device=None, batch: int = 512, n_rep: int = 5, windows: int = 3,
     bits = batch * codec.cfg.tbs
     row = {"cell": "turbo_decode_mbit_per_s", "unit": "Mbit/s",
            "value": {}, "median": {}, "windows_s": {}, "launches": {},
-           "launch_shapes": {}, "tbs_ok": {}, "batch": batch, "n_rep": n_rep,
+           "launch_shapes": {}, "tbs_ok": {}, "iterations": {},
+           "batch": batch, "n_rep": n_rep,
            "windows": windows, "tbs": codec.cfg.tbs,
            "block_sizes": codec.block_Ks}
     steps = {}
@@ -212,7 +215,11 @@ def turbo(device=None, batch: int = 512, n_rep: int = 5, windows: int = 3,
 
         secs, shapes = time_windows(step, dev, n_rep, windows)
         launched = _launches(shapes, n_rep * windows)
-        tb_hat, ok = step()
+        ran = []
+        tb_hat, ok = codec.decode(llr, dynamic_stop=dyn, iters=ran)[:2]
+        ran = torch.cat([n for _, n in ran]).double()
+        row["iterations"][name] = {"mean": ran.mean().item(),
+                                   "max": int(ran.max().item())}
         if not torch.equal(tb_hat[ok], tb[ok]):
             raise AssertionError(f"turbo cell {name}: a TB passed its CRC "
                                  "with wrong bits")

@@ -1,5 +1,7 @@
 // Windowed max-log-MAP half-iteration of the 36.212 8-state RSC
-// (g0 = 1+D^2+D^3 feedback, g1 = 1+D+D^3).
+// (g0 = 1+D^2+D^3 feedback, g1 = 1+D+D^3), and the whole iterative turbo
+// decode around it in one launch (turbo_decode_kernel, at the end: the v2
+// body below runs inside it, one copy of the recursion for both).
 //
 // Replaces the TPU kernel openair4g_tpu/ops/turbo_pallas.py
 // (_make_kernel_v2 / _build_call_v2 / half_iteration_pallas_v2) and computes
@@ -145,6 +147,137 @@ __device__ __forceinline__ void store_block(float* p, const float* v) {
   }
 }
 
+// The v2 half-iteration of one lane, window w of a code block's row, the
+// one copy of the recursion: gu_row and gp_row point at the window's node 0
+// in [B, N] rows of lin and lp (its alpha warm-up at [-U, 0), its beta head
+// at [W, W + U)); checkpoint k of the lane at ck_lane + k * ck_stride holds
+// beta at node (k+1) R; w is the window, n_w the row's windows. STORE, the
+// caller's policy, takes block j's R LLRs o and its lin values cu as read.
+// It is a macro so that the standalone kernel expands it in place and
+// compiles to the instructions it did before the decode kernel shared it
+// (a __device__ function, inlined, gave the same instructions with other
+// registers and order); the decode kernel expands it in half_iter_lane.
+#define TURBO_HALF_ITER_BODY(STORE) \
+  const int nb = W / R;                    /* blocks a window, checkpoints a lane */   \
+  const bool last = (w == n_w - 1);                                                    \
+                                                                                       \
+  /* ---- beta warm-up over the next window's head, reversed ---- */                   \
+  float beta[8];                                                                       \
+_Pragma("unroll")                                                                      \
+  for (int s = 0; s < 8; ++s) beta[s] = 0.f;                                           \
+  for (int i = 0; i < U / R; ++i) {                                                    \
+    float gu[R], gp[R];                                                                \
+    if (last) {                                                                        \
+_Pragma("unroll")                                                                      \
+      for (int r = 0; r < R; ++r) gu[r] = gp[r] = BIG;                                 \
+    } else {                                                                           \
+      load_block<R>(gu_row + W + U - (i + 1) * R, gu);                                 \
+      load_block<R>(gp_row + W + U - (i + 1) * R, gp);                                 \
+_Pragma("unroll")                                                                      \
+      for (int r = 0; r < R; ++r) { gu[r] *= 0.5f; gp[r] *= 0.5f; }                    \
+    }                                                                                  \
+_Pragma("unroll")                                                                      \
+    for (int r = R - 1; r >= 0; --r) beta_step(beta, gu[r], gp[r]);                    \
+    normalize(beta);                                                                   \
+  }                                                                                    \
+  store_block<8>(ck_lane + (nb - 1) * ck_stride, beta);                                \
+                                                                                       \
+  /* ---- main beta sweep, reversed: block i covers nodes [lo, lo + R), */             \
+  /* lo = W - (i+1) R; beta at lo is checkpoint lo/R - 1. The block at */              \
+  /* lo = 0 is not run: no LLR reads its betas. ---- */                                \
+  float cu[R], cp[R], nu[R], np[R];                                                    \
+  load_block<R>(gu_row + W - R, cu);                                                   \
+  load_block<R>(gp_row + W - R, cp);                                                   \
+  for (int i = 0; i < nb - 1; ++i) {                                                   \
+    const int lo = W - (i + 1) * R;                                                    \
+    load_block<R>(gu_row + lo - R, nu);    /* the next block, in flight */             \
+    load_block<R>(gp_row + lo - R, np);                                                \
+_Pragma("unroll")                                                                      \
+    for (int r = R - 1; r >= 0; --r) beta_step(beta, 0.5f * cu[r], 0.5f * cp[r]);      \
+    store_block<8>(ck_lane + (lo / R - 1) * ck_stride, beta);                          \
+    normalize(beta);                                                                   \
+_Pragma("unroll")                                                                      \
+    for (int r = 0; r < R; ++r) { cu[r] = nu[r]; cp[r] = np[r]; }                      \
+  }                                                                                    \
+                                                                                       \
+  /* ---- alpha warm-up over the previous window's tail ---- */                        \
+  float alpha[8];                                                                      \
+  if (w == 0) {                                                                        \
+    alpha[0] = 0.f;                                                                    \
+_Pragma("unroll")                                                                      \
+    for (int s = 1; s < 8; ++s) alpha[s] = NEG;                                        \
+  } else {                                                                             \
+_Pragma("unroll")                                                                      \
+    for (int s = 0; s < 8; ++s) alpha[s] = 0.f;                                        \
+    for (int i = 0; i < U / R; ++i) {                                                  \
+      float gu[R], gp[R];                                                              \
+      load_block<R>(gu_row - U + i * R, gu);                                           \
+      load_block<R>(gp_row - U + i * R, gp);                                           \
+_Pragma("unroll")                                                                      \
+      for (int r = 0; r < R; ++r) alpha_step(alpha, 0.5f * gu[r], 0.5f * gp[r]);       \
+      normalize(alpha);                                                                \
+    }                                                                                  \
+  }                                                                                    \
+                                                                                       \
+  /* ---- forward sweep: block j covers nodes [jR, jR + R) and reads beta */           \
+  /* at nodes jR + 1 .. jR + R, recomputed from checkpoint j ---- */                   \
+  float ckv[8], nck[8];                                                                \
+  load_block<R>(gu_row, cu);                                                           \
+  load_block<R>(gp_row, cp);                                                           \
+  load_block<8>(ck_lane, ckv);                                                         \
+  for (int j = 0; j < nb; ++j) {                                                       \
+    const int jn = j + 1 < nb ? j + 1 : j;   /* the next block, in flight */           \
+    load_block<R>(gu_row + jn * R, nu);                                                \
+    load_block<R>(gp_row + jn * R, np);                                                \
+    load_block<8>(ck_lane + jn * ck_stride, nck);                                      \
+                                                                                       \
+    float bv[R][8];                          /* bv[r]: beta at node jR + r + 1 */      \
+    float b[8];                                                                        \
+_Pragma("unroll")                                                                      \
+    for (int s = 0; s < 8; ++s) b[s] = bv[R - 1][s] = ckv[s];                          \
+    if (j + 1 < nb) normalize(b);            /* the state carried from node (j+1) R */ \
+_Pragma("unroll")                                                                      \
+    for (int r = R - 2; r >= 0; --r) {                                                 \
+      beta_step(b, 0.5f * cu[r + 1], 0.5f * cp[r + 1]);                                \
+_Pragma("unroll")                                                                      \
+      for (int s = 0; s < 8; ++s) bv[r][s] = b[s];                                     \
+    }                                                                                  \
+                                                                                       \
+    float o[R];                                                                        \
+_Pragma("unroll")                                                                      \
+    for (int r = 0; r < R; ++r) {                                                      \
+      const float gu = 0.5f * cu[r];                                                   \
+      const float gp = 0.5f * cp[r];                                                   \
+      float m0 = -INFINITY, m1 = -INFINITY;                                            \
+_Pragma("unroll")                                                                      \
+      for (int s = 0; s < 8; ++s) {                                                    \
+        const float gpt = par0(s) ? -gp : gp;                                          \
+        m0 = fmaxf(m0, (alpha[s] + gpt) + bv[r][next0(s)]);                            \
+        m1 = fmaxf(m1, (alpha[s] - gpt) + bv[r][next1(s)]);                            \
+      }                                                                                \
+      o[r] = (m0 + gu) - (m1 - gu);                                                    \
+      alpha_step(alpha, gu, gp);                                                       \
+    }                                                                                  \
+    normalize(alpha);                                                                  \
+    STORE;                                                                             \
+_Pragma("unroll")                                                                      \
+    for (int r = 0; r < R; ++r) { cu[r] = nu[r]; cp[r] = np[r]; }                      \
+_Pragma("unroll")                                                                      \
+    for (int s = 0; s < 8; ++s) ckv[s] = nck[s];                                       \
+  }
+
+// The body as a function for the decode kernel: store(j * R, o, cu) takes
+// block j's LLRs o and lin values cu.
+template <int R, class Store>
+__device__ __forceinline__ void half_iter_lane(const float* gu_row,
+                                               const float* gp_row,
+                                               float* ck_lane,
+                                               long long ck_stride, int w,
+                                               int n_w, int W, int U,
+                                               Store store) {
+  TURBO_HALF_ITER_BODY(store(j * R, o, cu))
+}
+
 // ck: [W/R, L, 8] float32; checkpoint k of a lane holds beta at node (k+1) R.
 template <int R>
 __global__ void __launch_bounds__(128, 2)
@@ -160,113 +293,7 @@ turbo_half_iter_kernel(const float* __restrict__ lin, const float* __restrict__ 
   float* o_row = out + base;
   float* ck_lane = ck + (long long)lane * 8;
   const long long ck_stride = (long long)L * 8;
-  const int nb = W / R;                    // blocks a window, checkpoints a lane
-  const bool last = (w == n_w - 1);
-
-  // ---- beta warm-up over the next window's head, reversed ----
-  float beta[8];
-#pragma unroll
-  for (int s = 0; s < 8; ++s) beta[s] = 0.f;
-  for (int i = 0; i < U / R; ++i) {
-    float gu[R], gp[R];
-    if (last) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) gu[r] = gp[r] = BIG;
-    } else {
-      load_block<R>(gu_row + W + U - (i + 1) * R, gu);
-      load_block<R>(gp_row + W + U - (i + 1) * R, gp);
-#pragma unroll
-      for (int r = 0; r < R; ++r) { gu[r] *= 0.5f; gp[r] *= 0.5f; }
-    }
-#pragma unroll
-    for (int r = R - 1; r >= 0; --r) beta_step(beta, gu[r], gp[r]);
-    normalize(beta);
-  }
-  store_block<8>(ck_lane + (nb - 1) * ck_stride, beta);
-
-  // ---- main beta sweep, reversed: block i covers nodes [lo, lo + R),
-  // lo = W - (i+1) R; beta at lo is checkpoint lo/R - 1. The block at
-  // lo = 0 is not run: no LLR reads its betas. ----
-  float cu[R], cp[R], nu[R], np[R];
-  load_block<R>(gu_row + W - R, cu);
-  load_block<R>(gp_row + W - R, cp);
-  for (int i = 0; i < nb - 1; ++i) {
-    const int lo = W - (i + 1) * R;
-    load_block<R>(gu_row + lo - R, nu);    // the next block, in flight
-    load_block<R>(gp_row + lo - R, np);
-#pragma unroll
-    for (int r = R - 1; r >= 0; --r) beta_step(beta, 0.5f * cu[r], 0.5f * cp[r]);
-    store_block<8>(ck_lane + (lo / R - 1) * ck_stride, beta);
-    normalize(beta);
-#pragma unroll
-    for (int r = 0; r < R; ++r) { cu[r] = nu[r]; cp[r] = np[r]; }
-  }
-
-  // ---- alpha warm-up over the previous window's tail ----
-  float alpha[8];
-  if (w == 0) {
-    alpha[0] = 0.f;
-#pragma unroll
-    for (int s = 1; s < 8; ++s) alpha[s] = NEG;
-  } else {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) alpha[s] = 0.f;
-    for (int i = 0; i < U / R; ++i) {
-      float gu[R], gp[R];
-      load_block<R>(gu_row - U + i * R, gu);
-      load_block<R>(gp_row - U + i * R, gp);
-#pragma unroll
-      for (int r = 0; r < R; ++r) alpha_step(alpha, 0.5f * gu[r], 0.5f * gp[r]);
-      normalize(alpha);
-    }
-  }
-
-  // ---- forward sweep: block j covers nodes [jR, jR + R) and reads beta
-  // at nodes jR + 1 .. jR + R, recomputed from checkpoint j ----
-  float ckv[8], nck[8];
-  load_block<R>(gu_row, cu);
-  load_block<R>(gp_row, cp);
-  load_block<8>(ck_lane, ckv);
-  for (int j = 0; j < nb; ++j) {
-    const int jn = j + 1 < nb ? j + 1 : j;   // the next block, in flight
-    load_block<R>(gu_row + jn * R, nu);
-    load_block<R>(gp_row + jn * R, np);
-    load_block<8>(ck_lane + jn * ck_stride, nck);
-
-    float bv[R][8];                          // bv[r]: beta at node jR + r + 1
-    float b[8];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) b[s] = bv[R - 1][s] = ckv[s];
-    if (j + 1 < nb) normalize(b);            // the state carried from node (j+1) R
-#pragma unroll
-    for (int r = R - 2; r >= 0; --r) {
-      beta_step(b, 0.5f * cu[r + 1], 0.5f * cp[r + 1]);
-#pragma unroll
-      for (int s = 0; s < 8; ++s) bv[r][s] = b[s];
-    }
-
-    float o[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float gu = 0.5f * cu[r];
-      const float gp = 0.5f * cp[r];
-      float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const float gpt = par0(s) ? -gp : gp;
-        m0 = fmaxf(m0, (alpha[s] + gpt) + bv[r][next0(s)]);
-        m1 = fmaxf(m1, (alpha[s] - gpt) + bv[r][next1(s)]);
-      }
-      o[r] = (m0 + gu) - (m1 - gu);
-      alpha_step(alpha, gu, gp);
-    }
-    normalize(alpha);
-    store_block<R>(o_row + j * R, o);
-#pragma unroll
-    for (int r = 0; r < R; ++r) { cu[r] = nu[r]; cp[r] = np[r]; }
-#pragma unroll
-    for (int s = 0; s < 8; ++s) ckv[s] = nck[s];
-  }
+  TURBO_HALF_ITER_BODY(store_block<R>(o_row + j * R, o))
 }
 
 // R floats at p, p + stride, ...: one row each of a t-major frame, where a
@@ -456,6 +483,197 @@ turbo_half_iter_v1_kernel(const float* __restrict__ lin,
   }
 }
 
+// The whole iterative turbo decode of one (K, F) group in one launch:
+// replaces openair4g_tpu/ops/turbo.py turbo_decode, the reference's
+// lax.while_loop (no Pallas kernel: XLA compiles the loop, the QPP permutes,
+// the decision and the CRC latch around half_iteration_pallas_v2 into one
+// device program). Its plain version is ops/turbo.turbo_decode_ref, the
+// port's host loop of two v2 launches and about twenty torch ops an
+// iteration with a host sync; the kernel equals it bit for bit.
+//
+// One block a code block row b, one thread a window (blockDim = n_w rounded
+// up to a warp; threads past n_w join the row-wide passes only). Per row,
+// ws holds six [N] rows: lin1, par1, lin2, par2, a1, ext2.
+//   prologue: the tails de-interlaced from llr_d [B, 3, K + 4] (36.212
+//     tail mapping) into lin1 = sys + 0 (the a-priori starts at 0), par1,
+//     par2 and lin2's tail, BIG past K + 3;
+//   each iteration, with __syncthreads() between the steps:
+//     HI1: the v2 lane body on lin1, par1, storing a1 = sys + (llr - lin1),
+//       the loop's sys + ext1 (so each pass below gathers one row, not
+//       two: 3.66 against 4.31 ms at 1,408 rows, 8 iterations, on an H100);
+//     the exchange: lin2[j] = a1[pi[j]], j < K, one pass of scattered
+//       reads, so that HI2 reads a contiguous row as v2 does (the
+//       recursion reads each node about 2.2 times);
+//     HI2: the v2 lane body on lin2, par2, storing ext2 = llr - lin2;
+//     the latch: la1[i] = ext2[inv_pi[i]], lin1[i] = sys[i] + la1[i] for
+//       the next HI1, bit = (a1 + la1)[i] < 0, written to the
+//       row's output until it latches; the CRC of the payload (positions
+//       F..K-1) is the XOR of the packed 24-bit rows of crc_matrix(K - F)
+//       over its set bits, reduced by warp shuffles and across warps in
+//       shared memory. A zero XOR latches the row (done, its bits kept).
+//   With dynamic_stop a latched row leaves the loop: the latch froze its
+//   bits at its first pass, so the outputs are the fixed loop's; the
+//   reference's batch-wide ~all(done) only ends its program. Without it
+//   every row runs n_iter iterations. A row that never latches gets zeros.
+//   iters[b]: the iterations the row ran.
+// The float32 operations are the loop's, in its order, adds only: the
+// packed XOR equals remainder(bits @ H, 2) == 0 exactly.
+//
+// What bounds it: the two half-iterations' operations (128 a position
+// each, as v2) and their rows' bytes (each input once: llr_d, the outputs
+// once). The exchange's scattered reads and the latch's go to rows the
+// block wrote itself (L2 where the rows fit).
+//
+// Registers: __launch_bounds__(128, 3) caps a thread at 168 registers, what
+// v2 takes at R = 8, so 12 one-warp blocks fit an SM (1,584 rows resident
+// on 132 SMs). A row takes at most 128 windows (K = 6,144 needs 26 at
+// W = 240, 65 at W = 96).
+// Positions a thread takes at once in the row-wide passes: their loads are
+// independent, so a warp keeps kPass of them in flight.
+constexpr int kPass = 8;
+
+template <int R>
+__global__ void __launch_bounds__(128, 3)
+turbo_decode_kernel(const float* __restrict__ llr_d,
+                    const int* __restrict__ pi, const int* __restrict__ inv_pi,
+                    const unsigned* __restrict__ crc_rows, float* ws,
+                    float* ck, int* bits, unsigned char* done, int* iters,
+                    int B, int K, int F, int n_w, int W, int U, int n_iter,
+                    int dynamic_stop) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int N = n_w * W;
+  const float* d0 = llr_d + (long long)b * 3 * (K + 4);
+  const float* d1 = d0 + (K + 4);
+  const float* d2 = d1 + (K + 4);
+  float* lin1 = ws + (long long)b * 6 * N;
+  float* par1 = lin1 + N;
+  float* lin2 = par1 + N;
+  float* par2 = lin2 + N;
+  float* a1 = par2 + N;
+  float* ext2 = a1 + N;
+  int* brow = bits + (long long)b * K;
+  const long long lane = (long long)b * n_w + tid;
+  const long long ck_stride = (long long)B * n_w * 8;
+  __shared__ unsigned s_xor[32];
+  __shared__ int s_done, s_iter;
+
+  for (int p = tid; p < N; p += nt) {
+    float l1 = BIG, p1 = BIG, l2 = BIG, p2 = BIG;
+    if (p < K) {
+      l1 = d0[p] + 0.f;
+      p1 = d1[p];
+      p2 = d2[p];
+    } else if (p == K) {
+      l1 = d0[K]; p1 = d1[K]; l2 = d0[K + 2]; p2 = d1[K + 2];
+    } else if (p == K + 1) {
+      l1 = d2[K]; p1 = d0[K + 1]; l2 = d2[K + 2]; p2 = d0[K + 3];
+    } else if (p == K + 2) {
+      l1 = d1[K + 1]; p1 = d2[K + 1]; l2 = d1[K + 3]; p2 = d2[K + 3];
+    }
+    lin1[p] = l1;
+    par1[p] = p1;
+    par2[p] = p2;
+    if (p >= K) lin2[p] = l2;
+  }
+  if (tid == 0) { s_done = 0; s_iter = n_iter; }
+  __syncthreads();
+
+  const bool active = tid < n_w;
+  const long long row = (long long)tid * W;
+  for (int it = 0; it < n_iter; ++it) {
+    if (active) {
+      float* a_row = a1 + row;
+      const float* s_row = d0 + row;
+      const int k_row = K - (int)row;
+      half_iter_lane<R>(lin1 + row, par1 + row, ck + lane * 8, ck_stride,
+                        tid, n_w, W, U,
+                        [=](int p, const float* o, const float* cu) {
+                          float a[R];
+#pragma unroll
+                          for (int r = 0; r < R; ++r)
+                            a[r] = (p + r < k_row ? s_row[p + r] : 0.f)
+                                   + (o[r] - cu[r]);
+                          store_block<R>(a_row + p, a);
+                        });
+    }
+    __syncthreads();
+    for (int j0 = tid; j0 < K; j0 += kPass * nt) {
+      int q[kPass];
+      float v[kPass];
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) q[u] = j0 + u * nt < K ? pi[j0 + u * nt] : 0;
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) v[u] = a1[q[u]];
+#pragma unroll
+      for (int u = 0; u < kPass; ++u)
+        if (j0 + u * nt < K) lin2[j0 + u * nt] = v[u];
+    }
+    __syncthreads();
+    if (active) {
+      float* e_row = ext2 + row;
+      half_iter_lane<R>(lin2 + row, par2 + row, ck + lane * 8, ck_stride,
+                        tid, n_w, W, U,
+                        [e_row](int p, const float* o, const float* cu) {
+                          float e[R];
+#pragma unroll
+                          for (int r = 0; r < R; ++r) e[r] = o[r] - cu[r];
+                          store_block<R>(e_row + p, e);
+                        });
+    }
+    __syncthreads();
+    const bool latched = s_done != 0;
+    unsigned x = 0;
+    for (int i0 = tid; i0 < K; i0 += kPass * nt) {
+      int q[kPass];
+      float la[kPass], sy[kPass], a[kPass];
+      unsigned cr[kPass];
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) {
+        const int i = i0 + u * nt;
+        q[u] = i < K ? inv_pi[i] : 0;
+        sy[u] = i < K ? d0[i] : 0.f;
+        a[u] = i < K ? a1[i] : 0.f;
+        cr[u] = i < K && i >= F ? crc_rows[i - F] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) la[u] = ext2[q[u]];
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) {
+        const int i = i0 + u * nt;
+        if (i < K) {
+          const float llr = a[u] + la[u];
+          lin1[i] = sy[u] + la[u];
+          if (!latched) {
+            const int bit = llr < 0.f;
+            brow[i] = bit;
+            if (bit) x ^= cr[u];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x ^= __shfl_xor_sync(0xffffffffu, x, off);
+    if ((tid & 31) == 0) s_xor[tid >> 5] = x;
+    __syncthreads();
+    if (tid == 0 && !latched) {
+      unsigned r = 0;
+      for (int k = 0; k < nt / 32; ++k) r ^= s_xor[k];
+      if (r == 0) { s_done = 1; s_iter = it + 1; }
+    }
+    __syncthreads();
+    if (dynamic_stop && s_done) break;
+  }
+
+  if (tid == 0) {
+    done[b] = (unsigned char)s_done;
+    iters[b] = dynamic_stop && s_done ? s_iter : n_iter;
+  }
+  if (!s_done)
+    for (int i = tid; i < K; i += nt) brow[i] = 0;
+}
+
 }  // namespace
 
 // lin, out: [B, n_w * W] float32 rows, 16-byte aligned when R % 4 == 0; gpf,
@@ -507,5 +725,46 @@ extern "C" int turbo_half_iter_launch(const void* lin, const void* lp, void* out
     case 1: turbo_half_iter_kernel<1><<<grid, block, 0, st>>>(a, b, o, s, n_w, W, U, L); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// llr_d: [B, 3, K + 4] float32; pi, inv_pi: [K] int32 (the QPP permutation
+// and its inverse); crc_rows: [K - F] the packed rows of crc_matrix(K - F);
+// ws: [B, 6, n_w * W] float32, 16-byte aligned when R % 4 == 0; scr: the
+// checkpoints, [(W / R) * B * n_w * 8] float32; bits: [B, K] int32, done:
+// [B] bool, iters: [B] int32, all written. Returns cudaGetLastError().
+extern "C" int turbo_decode_launch(const void* llr_d, const void* pi,
+                                   const void* inv_pi, const void* crc_rows,
+                                   void* ws, void* scr, void* bits, void* done,
+                                   void* iters, int B, int K, int F, int n_w,
+                                   int W, int U, int R, int n_iter,
+                                   int dynamic_stop, void* stream) {
+  if (B <= 0 || K <= 0 || F < 0 || F >= K || n_iter < 0 || W <= 0 ||
+      U <= 0 || U > W || W % R != 0 || U % R != 0 || n_w <= 0 ||
+      (long long)n_w * W < K + 3 || n_w > 128)
+    return (int)cudaErrorInvalidValue;
+  const int threads = (n_w + 31) / 32 * 32;
+  const dim3 grid(B);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)llr_d;
+  const int* p = (const int*)pi;
+  const int* q = (const int*)inv_pi;
+  const unsigned* c = (const unsigned*)crc_rows;
+  float* w = (float*)ws;
+  float* s = (float*)scr;
+  int* o = (int*)bits;
+  unsigned char* d = (unsigned char*)done;
+  int* n = (int*)iters;
+#define TURBO_DECODE(RR)                                                      \
+  turbo_decode_kernel<RR><<<grid, threads, 0, st>>>(                          \
+      l, p, q, c, w, s, o, d, n, B, K, F, n_w, W, U, n_iter, dynamic_stop)
+  switch (R) {
+    case 8: TURBO_DECODE(8); break;
+    case 4: TURBO_DECODE(4); break;
+    case 2: TURBO_DECODE(2); break;
+    case 1: TURBO_DECODE(1); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TURBO_DECODE
   return (int)cudaGetLastError();
 }

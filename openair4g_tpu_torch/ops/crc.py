@@ -59,6 +59,15 @@ def crc_matrix(K: int, kind: str) -> np.ndarray:
     return H
 
 
+@functools.lru_cache(maxsize=None)
+def crc_packed_rows(K: int, kind: str) -> np.ndarray:
+    """[K] int32: row i of crc_matrix(K, kind) packed, bit j of the word =
+    H[i, j]. The CRC of a message is the XOR of the rows of its set bits
+    (the turbo decode kernel's check: zero iff the CRC passes)."""
+    H = crc_matrix(K, kind).astype(np.int64)
+    return (H << np.arange(H.shape[1])).sum(axis=1).astype(np.int32)
+
+
 def attach_crc_host(bits: np.ndarray, kind: str) -> np.ndarray:
     """bits [K] -> bits || crc [K + L], int8."""
     return np.concatenate([np.asarray(bits, np.int8),

@@ -4,9 +4,12 @@ openair4g_tpu/ops/turbo.py).
 Encoder: the RSC constituent encoders are linear over GF(2) with a
 period-7 impulse response, so each parity stream is a stride-7 prefix-XOR
 (one cumsum) and only the 3-step trellis termination needs a table.
-Decoder: windowed max-log-MAP, two half-iterations per iteration on the
-hand-written kernel (turbo_cuda.half_iteration), a gather QPP permute,
-and a per-block CRC latch with a host-checked early exit.
+Decoder: windowed max-log-MAP, two half-iterations per iteration, the QPP
+permutes and a per-block CRC latch. On the card a (K, F) group's whole
+decode is one launch of the hand-written kernel (turbo_cuda.decode), each
+latched block leaving its loop; the plain version, turbo_decode_ref, is
+the host loop around turbo_cuda.half_iteration with a host-checked early
+exit, which the CPU runs.
 
 LLR sign convention: LLR = log P(bit=0)/P(bit=1).
 """
@@ -21,6 +24,7 @@ import torch
 from ..device import device_plan
 from ..tables.qpp import QPP_BY_K
 
+from . import turbo_cuda
 from .crc import crc_matrix, crc_remainder
 from .turbo_cuda import BIG, half_iteration
 
@@ -211,14 +215,35 @@ def _make_crc_checker(n_payload: int, kind: str):
     return check
 
 
-def turbo_decode(llr_d, cfg: TurboDecoderConfig):
+def turbo_decode(llr_d, cfg: TurboDecoderConfig, iters=None):
     """Batched turbo decode.
 
-    llr_d: [B, 3, K+4] float32 LLRs of the d0/d1/d2 streams. Returns
-    (bits [B, K] int32, crc_ok [B] bool); each block's decisions are
-    latched at the first iteration whose CRC passes. With dynamic_stop the
-    loop ends once every block has latched (one host sync per iteration);
-    the outputs equal those of the fixed n_iter loop.
+    llr_d: [B, 3, K+4] LLRs of the d0/d1/d2 streams. Returns (bits [B, K]
+    int32, crc_ok [B] bool); each block's decisions are latched at the
+    first iteration whose CRC passes, so dynamic_stop changes no output.
+    A CUDA tensor decodes in one launch of the decode kernel, with no host
+    sync; a CPU tensor runs the plain loop, turbo_decode_ref. `iters`, an
+    int32 [B] tensor on llr_d's device, receives the iterations each block
+    ran (with dynamic_stop those up to its latch, else n_iter).
+    """
+    dev = llr_d.device
+    if dev.type == "cpu":
+        return turbo_decode_ref(llr_d, cfg, iters)
+    if dev.type != "cuda":
+        raise ValueError(f"turbo_decode: llr_d on {dev}; CUDA or CPU only")
+    pi = qpp_interleaver(cfg.K)
+    return turbo_cuda.decode(
+        llr_d.to(torch.float32).contiguous(),
+        device_plan(pi, dev, dtype=torch.int32),
+        device_plan(pi, dev, _inverse_perm, torch.int32), cfg.F, cfg.n_iter,
+        cfg.window, cfg.warmup, cfg.crc_kind, cfg.dynamic_stop, iters)
+
+
+def turbo_decode_ref(llr_d, cfg: TurboDecoderConfig, iters=None):
+    """The plain version of turbo_decode: the host loop of two
+    half_iteration calls, the permutes and the CRC latch an iteration; with
+    dynamic_stop the loop ends once every block has latched (one host sync
+    per iteration). The outputs equal those of the fixed n_iter loop.
     """
     K = cfg.K
     W, U = cfg.window, cfg.warmup
@@ -247,7 +272,9 @@ def turbo_decode(llr_d, cfg: TurboDecoderConfig):
     la1 = torch.zeros(B, K, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     bits_latched = torch.zeros(B, K, dtype=torch.int32, device=dev)
-    for _ in range(cfg.n_iter):
+    if iters is not None:
+        iters.fill_(cfg.n_iter)
+    for it in range(cfg.n_iter):
         lin1 = torch.cat([sys_ch + la1, tail1, pad], dim=1)
         llr1 = half_iteration(lin1, par1_p, W, U)
         ext1 = llr1[:, :K] - lin1[:, :K]
@@ -262,6 +289,8 @@ def turbo_decode(llr_d, cfg: TurboDecoderConfig):
         newly = ok & ~done
         bits_latched = torch.where(newly[:, None], bits, bits_latched)
         done = done | ok
+        if iters is not None and cfg.dynamic_stop:
+            iters.masked_fill_(newly, it + 1)
         if cfg.dynamic_stop and bool(done.all()):
             break
     return bits_latched, done

@@ -1,5 +1,6 @@
-"""Turbo half-iteration on the card: wrappers of csrc/turbo_half_iter.cu and
-their plain PyTorch versions.
+"""Turbo half-iteration and decode on the card: wrappers of
+csrc/turbo_half_iter.cu and the half-iteration's plain PyTorch versions
+(the decode's is ops/turbo.turbo_decode_ref).
 
 Replaces both TPU kernels of openair4g_tpu/ops/turbo_pallas.py. The v2
 kernel (`half_iteration_pallas_v2`, the decoder's) is `half_iteration`: a
@@ -12,7 +13,10 @@ at window-end nodes (by about 1 on random inputs). The v1 kernel
 window-replicated t-major frames, built once a decode; it differs from v2
 only in rounding at window ends. Both kernels keep one beta checkpoint per
 renormalization block in a scratch the wrapper allocates and read lin
-[B, N] where it lies: a call is one launch.
+[B, N] where it lies: a call is one launch. `decode` is the whole
+iterative decode of a (K, F) group in one launch of turbo_decode_kernel,
+whose threads run the v2 body: it replaces the reference's
+ops/turbo.turbo_decode while_loop.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from .. import kernels
 from ..device import count_launch, device_plan
+from .crc import crc_packed_rows
 
 NEG = -1e9
 BIG = 1e4
@@ -417,3 +422,67 @@ def half_iteration_prepped(lin, gpf, gpb, W: int, U: int):
     kernels.check(err, "turbo_half_iter_v1")
     count_launch("turbo_half_iter_v1", (B, N, W, U))
     return out
+
+
+# --------------------------------------------------------------- decode --
+
+def decode(llr_d, pi, inv_pi, F: int, n_iter: int, W: int, U: int,
+           crc_kind: str, dynamic_stop: bool, iters=None):
+    """The turbo decode of a (K, F) group in one launch of
+    turbo_decode_kernel, no host sync. llr_d: [B, 3, K + 4] float32 LLRs
+    of the d0/d1/d2 streams; pi, inv_pi: [K] int32, the QPP permutation
+    and its inverse; all contiguous on one CUDA device. Returns (bits
+    [B, K] int32, done [B] bool), equal bit for bit to
+    ops/turbo.turbo_decode_ref's. `iters`, an int32 [B] tensor on the
+    device, receives the iterations each row ran (its latch's with
+    dynamic_stop, else n_iter)."""
+    args = (llr_d, pi, inv_pi) + (() if iters is None else (iters,))
+    if llr_d.device.type != "cuda" or any(a.device != llr_d.device
+                                          for a in args):
+        raise ValueError("turbo decode: llr_d, pi, inv_pi and iters must be"
+                         " on one CUDA device")
+    if llr_d.dim() != 3 or llr_d.shape[1] != 3 or llr_d.shape[2] < 5:
+        raise ValueError(f"turbo decode: llr_d {tuple(llr_d.shape)} must be"
+                         " [B, 3, K + 4]")
+    B, K = llr_d.shape[0], llr_d.shape[2] - 4
+    if not (0 < U <= W and 0 <= F < K):
+        raise ValueError(f"turbo decode: need 0 < U={U} <= W={W} and 0 <= "
+                         f"F={F} < K={K}")
+    N = -(-(K + 3) // W) * W
+    if llr_d.dtype != torch.float32:
+        raise TypeError("turbo decode: float32 LLRs required")
+    for name, t, shape in (("pi", pi, (K,)), ("inv_pi", inv_pi, (K,)),
+                           ("iters", iters, (B,))):
+        if t is not None and (t.dtype != torch.int32
+                              or tuple(t.shape) != shape):
+            raise ValueError(f"turbo decode: {name} must be int32 {shape}")
+    if not all(a.is_contiguous() for a in args):
+        raise ValueError("turbo decode: contiguous inputs required")
+    n_w = N // W
+    if n_w > 128:
+        raise ValueError(f"turbo decode: {n_w} windows a row, at most 128 "
+                         "(one thread a window in a block of 128)")
+    dev = llr_d.device
+    bits = torch.empty(B, K, dtype=torch.int32, device=dev)
+    done = torch.empty(B, dtype=torch.bool, device=dev)
+    if B == 0:
+        return bits, done
+    if iters is None:
+        iters = torch.empty(B, dtype=torch.int32, device=dev)
+    ws = torch.empty(B, 6, N, dtype=torch.float32, device=dev)
+    if ws.data_ptr() % 16:
+        raise ValueError("turbo decode: the workspace is not 16-byte aligned"
+                         " (the half-iterations load float4 vectors)")
+    scr = torch.empty(scratch_numel(B * n_w, W, U), dtype=torch.float32,
+                      device=dev)
+    rows = device_plan(crc_packed_rows(K - F, crc_kind), dev)
+    lib = kernels.load()
+    err = lib.turbo_decode_launch(
+        llr_d.data_ptr(), pi.data_ptr(), inv_pi.data_ptr(), rows.data_ptr(),
+        ws.data_ptr(), scr.data_ptr(), bits.data_ptr(), done.data_ptr(),
+        iters.data_ptr(), B, K, F, n_w, W, U, pick_unroll(W, U), n_iter,
+        int(dynamic_stop), kernels.stream_of(llr_d))
+    kernels.check(err, "turbo_decode")
+    count_launch("turbo_decode", (B, K, F, W, U, n_iter, crc_kind,
+                                  bool(dynamic_stop)))
+    return bits, done

@@ -118,13 +118,16 @@ class DlschCodec:
 
     # ------------------------------------------------------------------ RX --
     def decode(self, e_llr, w_soft=None, rv: int | None = None,
-               dynamic_stop: bool = True):
+               dynamic_stop: bool = True, iters: list | None = None):
         """e_llr [B, G] -> (tb_bits [B, TBS], tb_ok [B], w_soft list).
 
         `w_soft`: per-block soft buffers of an earlier HARQ round, or None;
         the returned list feeds the next round. `rv` must match the
         transmitter's redundancy version. `dynamic_stop=False` runs all
-        n_turbo_iter iterations (the outputs are the same either way)."""
+        n_turbo_iter iterations (the outputs are the same either way).
+        `iters`: a list, or None; for a list, each (K, F) group's decode
+        appends ((K, F), the iterations its rows ran), an int32 tensor on
+        the device, read by the caller whenever it syncs."""
         cfg, seg = self.cfg, self.seg
         maps = self.maps_by_rv[cfg.rv if rv is None else rv]
         B = e_llr.shape[0]
@@ -153,7 +156,12 @@ class DlschCodec:
                 warmup=cfg.decoder_warmup,
                 crc_kind="crc24b" if seg.C > 1 else "crc24a",
                 dynamic_stop=dynamic_stop)
-            bits, ok = turbo.turbo_decode(stacked, dcfg)
+            ran = None
+            if iters is not None:
+                ran = torch.empty(stacked.shape[0], dtype=torch.int32,
+                                  device=stacked.device)
+                iters.append(((K, F), ran))
+            bits, ok = turbo.turbo_decode(stacked, dcfg, ran)
             for i, r in enumerate(rs):
                 results[r] = (bits[i * B:(i + 1) * B], ok[i * B:(i + 1) * B])
 

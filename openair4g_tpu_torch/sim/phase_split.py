@@ -29,7 +29,8 @@ timers (the names the sim modules imported are patched, so the sync
 adds to the total and nested phases are reported inside their parent);
 the Viterbi decoder (the kernel on a card: for the DCI, the search entry
 with the candidates' de-rate-matching) is reported inside the DCI blind
-decode and the CQI decode that call it; then
+decode and the CQI decode that call it, and the turbo decode kernel (one
+launch a (K, F) group on a card) inside turbo_decode; then
 torch.profiler over 3 unwrapped steps for the device time and busy
 share. With the dd path, the time-domain FIR channel of one round at the
 same shape against the per-subcarrier multiply, by CUDA events. With
@@ -47,6 +48,7 @@ import time
 import torch
 
 from ..ops import turbo as turbo_mod
+from ..ops import turbo_cuda
 from ..ops import uci
 from ..phy import ofdm, pdcch, pdsch
 from ..ops.uci import UciConfig
@@ -83,6 +85,7 @@ def patch() -> list:
     p(pdsch.DlschCodec, "encode", "encode (CRC, turbo encode, rate match)")
     p(pdsch.DlschCodec, "decode", "decode (de-rate-match, turbo, CRC)")
     p(turbo_mod, "turbo_decode", "  turbo_decode")
+    p(turbo_cuda, "decode", "    decode (kernel; the whole decode)")
     p(turbo_mod, "half_iteration", "    half_iteration (kernel)")
     p(dlsim_mimo.SfbcPdcch, "tx", "PDCCH tx")
     p(dlsim_mimo.SfbcPdcch, "rx", "PDCCH rx (combine, demap, blind decode)")

@@ -153,6 +153,15 @@ def test_each_cell_gives_a_positive_finite_rate_on_the_cpu(rows, k):
     assert all(v is None for v in _rates(row["device_ms_per_step"]))
 
 
+def test_turbo_cell_reports_iterations_run(rows):
+    """Read after the timed windows: every row of the fixed decode runs all
+    8 iterations, the dynamic stop's rows at most 8."""
+    its = rows[2]["iterations"]
+    assert its["fixed_8iter"] == {"mean": 8.0, "max": 8}
+    assert 1 <= its["earlystop_operating"]["mean"] <= 8
+    assert its["earlystop_operating"]["max"] <= 8
+
+
 def test_last_line_has_bench_py_keys(rows):
     line = bench.last_line(rows)
     assert set(line) == {"metric", "value", "unit", "vs_baseline", "extras"}

@@ -209,10 +209,10 @@ def test_phase_split_wraps_each_phase_and_restores_it():
               dlsim_mimo.demap_llr_fused)
     saved = phase_split.patch()
     try:
-        # 34 downlink phases (the DCI's Viterbi among them), 11 uplink (the
-        # CQI's Viterbi among them), 7 of the full chain, 3 of oaisim, 3 of
-        # the capstone's DL TTI
-        assert len(saved) == 58
+        # 35 downlink phases (the DCI's Viterbi and the turbo decode kernel
+        # among them), 11 uplink (the CQI's Viterbi among them), 7 of the
+        # full chain, 3 of oaisim, 3 of the capstone's DL TTI
+        assert len(saved) == 59
         assert all(getattr(o, a).__wrapped__ is f for o, a, f in saved)
     finally:
         phase_split.unpatch(saved)
