@@ -266,10 +266,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      iterations run torch.equal, one launch a call; each key's time by
      CUDA events beside the loop's and the bound from this run's
      iterations; once against the all-plain loop (half_iteration_ref) at
-     16 x K = 1,024; then the flagship's decode under
+     16 x K = 1,024; at 16 x K = 6,144 in windows of 40 (154 a row, past
+     the 128 the kernel once refused); each key's rows a block, layout and
+     mean over blocks of the rows' largest iteration count beside the mean
+     iterations; then the flagship's decode under
      torch.cuda.set_sync_debug_mode("error"), which raises at a host sync;
      then, by torch.profiler, the flagship group's decode at fixed
-     iterations against the host loop's 2 n_iter v2 launches at its shape;
+     iterations (on its inputs, and on noise, where every row runs them
+     all) against the host loop's 2 n_iter v2 launches at its shape;
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
@@ -350,6 +354,7 @@ from openair4g_tpu_torch.ops.convcode import (search_llrs, search_llrs_ref,
                                               viterbi_decode_ref,
                                               viterbi_search,
                                               viterbi_search_ref)
+from openair4g_tpu_torch.ops import turbo_cuda
 from openair4g_tpu_torch.ops.turbo_cuda import (TURBO_OPS_PER_POS,
                                                 half_iteration,
                                                 half_iteration_prepped,
@@ -386,7 +391,8 @@ from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
 from openair4g_tpu_torch.sim.framegen import generate_frame
 from openair4g_tpu_torch.sim.fullsim import FullChainSim, FullsimConfig
 from openair4g_tpu_torch.sim.harness import dlsim_main, fullsim_main
-from openair4g_tpu_torch.scripts import (awgn_campaign, doppler_campaign,
+from openair4g_tpu_torch.scripts import (awgn_campaign, decode_times,
+                                         doppler_campaign,
                                          eva_ablation, fading_campaign,
                                          fidelity_campaign, flagship_profile,
                                          flagship_stages, prach_roc,
@@ -4467,9 +4473,14 @@ def capstone_tti_steps(cap_sim, pf_sim) -> list:
 # The decode kernel's rows, {launch key: row}, each key held once
 # (_hold_turbo_decode).
 DECODE_ROWS: dict = {}
-# Float32 operations a decode does beyond its half-iterations, a position
-# and iteration: a1 = sys + (llr - lin), ext2 = llr - lin, the latch's two
-# adds and its compare.
+# A decode key of 154 windows a row (K = 6,144, W = 40), beyond the 128 the
+# kernel once took, held in phase 48 though no path launches it.
+WIDE_DECODE_KEY = (16, 6144, 0, 40, 8, 8, "crc24a", True)
+# Float32 operations the decode loop does beyond its half-iterations, a
+# position and iteration: ext1 = llr - lin, a1 = sys + ext1, ext2 = llr -
+# lin, lin1 = sys + la1, the decision's add a1 + la1 and its compare (the
+# staged kernel adds a1 once more, beside lin2 = D + ext1[pi]; the bound
+# counts the loop's).
 DECODE_OPS_PER_POS = 6
 
 
@@ -4545,15 +4556,24 @@ def _hold_turbo_decode(key: tuple, dev, gen, timings: list) -> dict:
         plain = _time_ms(lambda: turbo_mod.turbo_decode_ref(llr, cfg), 3)
     bound = _decode_bound(key, ran[dyn])
     n_ok = int(got[1].sum())
+    # A block's rows step together: what it runs is its rows' largest
+    # iteration count (the dynamic-stop counts; a row that never latches
+    # runs n_iter in both modes).
+    rows, staged = turbo_cuda.decode_plan(B, K, W)
+    blocks = decode_times.block_iterations(ran[True], rows)
     print(f"turbo_decode {key}: bits, flags and iterations equal to the "
           f"host loop's in both modes ({n_ok}/{B} latched; mean iterations "
-          f"{ran[dyn].double().mean().item():.2f} at dynamic_stop={dyn}); "
-          f"kernel {ms:.4f} ms, loop {plain:.4f} ms, bound "
-          f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})", flush=True)
+          f"{ran[dyn].double().mean().item():.2f} at dynamic_stop={dyn}, "
+          f"blocks' mean largest {blocks:.2f} at {rows} rows a block, "
+          f"{'staged' if staged else 'on chip'}); kernel {ms:.4f} ms, loop "
+          f"{plain:.4f} ms, bound {bound['bound_ms']:.5f} ms "
+          f"({bound['bound_by']})", flush=True)
     row = {"shape": f"{B:,} rows of K = {K:,}, F = {F}, W = {W}, U = {U}, "
            f"{n_iter} iterations, {crc_kind}, dynamic_stop {dyn}",
            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-           "mean_iterations": ran[dyn].double().mean().item(), **bound}
+           "mean_iterations": ran[dyn].double().mean().item(),
+           "blocks_mean_largest_iterations": blocks, "rows_a_block": rows,
+           "staged": staged, **bound}
     timings.append((f"turbo_decode {key}", kernel, DECODE_KERNEL, row))
     DECODE_ROWS[key] = row
     return row
@@ -4585,6 +4605,9 @@ def turbo_decode_on_card(dev, gen, timings, ranks_launched: dict) -> dict:
                         if 5 in by_phase), key=lambda key: key[0])
     for key in sorted(launched, key=str):
         _hold_turbo_decode(key, dev, gen, timings)
+    # No path launches more than 128 windows a row (26 at K = 6,144 and W =
+    # 240), which the kernel once refused: held at 154.
+    _hold_turbo_decode(WIDE_DECODE_KEY, dev, gen, timings)
 
     small = (16, 1024, 0, TURBO_W, TURBO_U, 8, "crc24a", True)
     llr = _decode_inputs(*small[:3], small[6], dev, gen)
@@ -4637,15 +4660,22 @@ def turbo_decode_on_card(dev, gen, timings, ranks_launched: dict) -> dict:
         shape = _v2_shape(flagship_key)
         lin = 3.0 * torch.randn(*shape[:2], generator=gen, device=dev)
         lp = 3.0 * torch.randn(*shape[:2], generator=gen, device=dev)
-        (dec_ms, _), (v2_ms, _) = _device_ms(
+        # A latched row skips its work, so on these inputs the fixed loop
+        # runs fewer iterations than n_iter; on noise no row latches and
+        # every row runs all n_iter, the loop's work.
+        noise = 3.0 * torch.randn(llr.shape, generator=gen, device=dev)
+        (dec_ms, _), (full_ms, _), (v2_ms, _) = _device_ms(
             [(lambda: turbo_mod.turbo_decode(llr, fixed), DECODE_KERNEL),
+             (lambda: turbo_mod.turbo_decode(noise, fixed), DECODE_KERNEL),
              (lambda: half_iteration(lin, lp, W, U),
               "turbo_half_iter_kernel<")], 5)
     DECODE_ROWS[flagship_key].update(
         fixed_iterations_device_ms=dec_ms,
+        full_iterations_device_ms=full_ms,
         v2_launches_of_the_fixed_loop_device_ms=2 * n_iter * v2_ms)
     print(f"48 the flagship group at {n_iter} fixed iterations: the decode "
-          f"kernel {dec_ms:.4f} ms device, the loop's {2 * n_iter} v2 "
+          f"kernel {dec_ms:.4f} ms device ({full_ms:.4f} ms on noise, every "
+          f"row running all {n_iter}), the loop's {2 * n_iter} v2 "
           f"launches at {shape[:2]} {2 * n_iter * v2_ms:.4f} ms "
           f"({v2_ms:.4f} ms each)", flush=True)
     return {"launched": launched}

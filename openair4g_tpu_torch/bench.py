@@ -16,7 +16,9 @@ Cells, at bench.py's sizes, window counts and best-of-windows:
   segments into 2 blocks of K = 4,032 (not K = 6,144, as bench.py's
   docstring says), so one decode is one launch of the decode kernel on
   1,024 rows of N = 4,080 (17 windows of W = 240). Two numbers:
-  fixed_8iter (dynamic_stop off: every row runs 8 iterations) and
+  fixed_8iter (dynamic_stop off: every row reports 8 iterations, but a
+  row whose CRC has passed skips the rest of its work, its outputs being
+  fixed, so the kernel does about the work of the other cell) and
   earlystop_operating (each row leaves at its CRC latch); 3 windows of 5
   decodes each. Beside them, the decode's launches, and the iterations
   its rows ran, read from the device after the timed windows.
@@ -196,8 +198,9 @@ def turbo_inputs(codec: DlschCodec, batch: int, dev, seed: int = 7):
 
 def turbo(device=None, batch: int = 512, n_rep: int = 5, windows: int = 3,
           mcs: int = 10, n_rb: int = 50):
-    """Turbo decode Mbit/s of DlschCodec.decode, with all 8 iterations
-    (fixed_8iter) and with the dynamic stop (earlystop_operating)."""
+    """Turbo decode Mbit/s of DlschCodec.decode, with dynamic_stop off
+    (fixed_8iter: 8 iterations reported a row, the work skipped after a
+    row's CRC passes) and on (earlystop_operating)."""
     dev = resolve_device(device)
     codec = DlschCodec(DlschConfig(mcs=mcs, n_rb=n_rb, n_turbo_iter=8))
     tb, llr = turbo_inputs(codec, batch, dev)

@@ -68,6 +68,7 @@
 //      168 registers at R = 8 (with (128) alone it took 128 and the kernel
 //      ran 2.7 % slower), no spills. No shared memory, no __syncthreads(),
 //      so the ragged last block simply masks its lanes past L.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -266,8 +267,9 @@ _Pragma("unroll")                                                               
     for (int s = 0; s < 8; ++s) ckv[s] = nck[s];                                       \
   }
 
-// The body as a function for the decode kernel: store(j * R, o, cu) takes
-// block j's LLRs o and lin values cu.
+// The body as a function for the decode kernel: gu_row and gp_row are the
+// lane's window in its rows, store(j * R, o, cu) takes block j's LLRs o and
+// lin values cu.
 template <int R, class Store>
 __device__ __forceinline__ void half_iter_lane(const float* gu_row,
                                                const float* gp_row,
@@ -491,187 +493,407 @@ turbo_half_iter_v1_kernel(const float* __restrict__ lin,
 // port's host loop of two v2 launches and about twenty torch ops an
 // iteration with a host sync; the kernel equals it bit for bit.
 //
-// One block a code block row b, one thread a window (blockDim = n_w rounded
-// up to a warp; threads past n_w join the row-wide passes only). Per row,
-// ws holds six [N] rows: lin1, par1, lin2, par2, a1, ext2.
-//   prologue: the tails de-interlaced from llr_d [B, 3, K + 4] (36.212
-//     tail mapping) into lin1 = sys + 0 (the a-priori starts at 0), par1,
-//     par2 and lin2's tail, BIG past K + 3;
-//   each iteration, with __syncthreads() between the steps:
-//     HI1: the v2 lane body on lin1, par1, storing a1 = sys + (llr - lin1),
-//       the loop's sys + ext1 (so each pass below gathers one row, not
-//       two: 3.66 against 4.31 ms at 1,408 rows, 8 iterations, on an H100);
-//     the exchange: lin2[j] = a1[pi[j]], j < K, one pass of scattered
-//       reads, so that HI2 reads a contiguous row as v2 does (the
-//       recursion reads each node about 2.2 times);
-//     HI2: the v2 lane body on lin2, par2, storing ext2 = llr - lin2;
-//     the latch: la1[i] = ext2[inv_pi[i]], lin1[i] = sys[i] + la1[i] for
-//       the next HI1, bit = (a1 + la1)[i] < 0, written to the
-//       row's output until it latches; the CRC of the payload (positions
-//       F..K-1) is the XOR of the packed 24-bit rows of crc_matrix(K - F)
-//       over its set bits, reduced by warp shuffles and across warps in
-//       shared memory. A zero XOR latches the row (done, its bits kept).
-//   With dynamic_stop a latched row leaves the loop: the latch froze its
-//   bits at its first pass, so the outputs are the fixed loop's; the
-//   reference's batch-wide ~all(done) only ends its program. Without it
-//   every row runs n_iter iterations. A row that never latches gets zeros.
-//   iters[b]: the iterations the row ran.
-// The float32 operations are the loop's, in its order, adds only: the
-// packed XOR equals remainder(bits @ H, 2) == 0 exactly.
+// A block takes `rows` code block rows of the group, their windows packed
+// into its warps: lane l = r * n_w + w is window w of the block's row r,
+// and thread t runs lanes t, t + blockDim.x, ... (so any window count a row
+// runs; the warps are full where rows * n_w is a multiple of 32). Each code
+// block has lin1, lin2, par1 and par2 of N floats with the tails (36.212's
+// mapping) and BIG past K + 3 written once, so the body reads plain rows as
+// v2 does, and D and ext of K (decode_row). Each half-iteration stores its
+// extrinsic llr - lin in order, as v2 stores its LLRs; row passes between
+// them do the QPP exchange with the loop's adds:
+//   the exchange: lin2 = D + ext1[pi], D = d0[pi] made once (the loop's
+//     sys + ext1, permuted: the same single add);
+//   the latch pass: lin1 = d0 + ext2[inv_pi] (sys + la1), the decision of
+//     each position and the payload's CRC word, the XOR of the packed rows
+//     crc_rows[i - F] of the set bits at i >= F.
+// The decision of position i is (a1 + la1) < 0 with a1 = sys + ext1: lin2
+// at inv_pi[i] holds the same float, so this is the loop's sys + ext1 +
+// la1 with its two roundings. The decisions stay in shared memory as K bits
+// a row. Two layouts of the rows:
+//   on chip (for groups whose rows all fit the SMs' shared memory at once):
+//     in dynamic shared memory; the passes gather from it, and the latch
+//     pass takes lin2 + ext2 at inv_pi[i];
+//   staged (the launch's choice for larger groups): in ws [B, decode_row]
+//     in device memory; each pass takes a row at a time through one shared
+//     staging row (cp.async in), so its gathers read shared memory; HI2
+//     stores ext2 over lin1, and the latch pass reads ext1 in order beside
+//     it (latch_rows_staged).
+// Per iteration: HI1, a barrier, the exchange, HI2, a barrier, the latch
+// pass, a barrier; a zero CRC word latches the row (its bits frozen, the
+// iteration kept); a barrier. A latched row's lanes skip their work from
+// then on: its outputs are fixed, so both stop modes run the same work and
+// differ only in iters (the latch's iteration with dynamic_stop, else
+// n_iter). The block leaves the loop when all its rows have latched. At
+// the end the decisions go to bits once, coalesced (zeros for a row that
+// never latched). The float32 operations are the loop's, in its order,
+// adds only: the packed XOR equals remainder(bits @ H, 2) == 0 exactly.
 //
-// What bounds it: the two half-iterations' operations (128 a position
-// each, as v2) and their rows' bytes (each input once: llr_d, the outputs
-// once). The exchange's scattered reads and the latch's go to rows the
-// block wrote itself (L2 where the rows fit).
-//
-// Registers: __launch_bounds__(128, 3) caps a thread at 168 registers, what
-// v2 takes at R = 8, so 12 one-warp blocks fit an SM (1,584 rows resident
-// on 132 SMs). A row takes at most 128 windows (K = 6,144 needs 26 at
-// W = 240, 65 at W = 96).
-// Positions a thread takes at once in the row-wide passes: their loads are
-// independent, so a warp keeps kPass of them in flight.
-constexpr int kPass = 8;
+// What bounds it: the two half-iterations' operations (128 a position each,
+// as v2); the bytes are llr_d read once, the plans and the outputs. What
+// sets its pace (NVIDIA H100 80GB HBM3, 700 W; scripts/decode_times): each
+// lane is a serial chain of about 0.1 ms a half-iteration at any occupancy
+// up to v2's, so a group's rows must all be resident (one wave) to reach
+// v2's rate, and at a few rows an SM the work in that chain sets the time.
+// On chip a row of the largest K takes 137 KB, one an SM; staged, a block
+// needs one staging row (22.5 KB at K = 5,632), so the flagship's 1,408
+// rows fit at once.
+constexpr int kDecodeThreads = 384;  // at most, a block: 168 registers each
+constexpr int kDecodeMaxRows = 4;    // rows a block, at most
+constexpr int kSmallGridThreads = 256;  // threads a block at least, where SMs idle
 
-template <int R>
-__global__ void __launch_bounds__(128, 3)
+// The tail values of a row, 36.212's tail mapping of the d0/d1/d2 streams
+// [3, K + 4]: stream s (lin1, par1, lin2, par2; on chip, row kTailRow[s]
+// of a code block's rows) value j is d[kTailD[s][j]][K + kTailOff[s][j]].
+__device__ constexpr int kTailD[4][3] = {{0, 2, 1}, {1, 0, 2}, {0, 2, 1}, {1, 0, 2}};
+__device__ constexpr int kTailOff[4][3] = {{0, 0, 1}, {0, 1, 1}, {2, 2, 3}, {2, 3, 3}};
+__device__ constexpr int kTailRow[4] = {0, 2, 1, 3};
+
+// Words of a row's decision bits, a multiple of 4 (16 bytes).
+__host__ __device__ constexpr int dec_words(int K) { return (K + 127) / 128 * 4; }
+
+__device__ __forceinline__ unsigned dec_bit(const unsigned* dec, int q) {
+  return (dec[q >> 5] >> (q & 31)) & 1u;
+}
+
+// Floats of a code block's rows (in shared memory on chip, in ws staged):
+// lin1, lin2, par1 and par2 of N each (rounded up to 16 bytes), D and ext
+// of K.
+__host__ __device__ constexpr long long decode_row(int K, int N) {
+  return 4LL * ((N + 3) / 4 * 4) + 2LL * K;
+}
+
+// Dynamic shared memory of a block of `rows` rows: on chip, the rows;
+// staged, one staging row of K; and the decision bits a row.
+__host__ __device__ constexpr long long decode_smem_bytes(int rows, int K, int N,
+                                                          bool staged) {
+  return 4LL * (staged ? K : rows * decode_row(K, N)) +
+         4LL * rows * dec_words(K);
+}
+
+// Positions a thread takes at once in the row passes: their loads are in
+// flight together.
+constexpr int kPass = 4;
+
+// A row pass: for each unlatched row r of the block, dst_r[j] = (add_r[j]
+// +) src_r[perm[j]], j < K (x_r = x + r * x_rs). With STAGE (src in device
+// memory) the source row comes into the shared staging row by cp.async
+// first (no registers, all of a thread's 16-byte pieces in flight at
+// once), so the gathers read shared memory; dst may then be src. The rows
+// are written in order. s_iter is block-uniform.
+template <bool ADD, bool STAGE>
+__device__ __forceinline__ void permute_rows(
+    const float* src, long long src_rs, float* dst, long long dst_rs,
+    const float* __restrict__ add, long long add_rs,
+    const int* __restrict__ perm, float* stage, int nr, int K,
+    const int* s_iter) {
+  const int n4 = K / 4, nt = blockDim.x;
+  const int4* p4 = reinterpret_cast<const int4*>(perm);
+  for (int r = 0; r < nr; ++r) {
+    if (s_iter[r] != 0) continue;
+    const float* from = src + r * src_rs;
+    if constexpr (STAGE) {
+      for (int i = 4 * threadIdx.x; i < K; i += 4 * nt)
+        __pipeline_memcpy_async(stage + i, from + i, 16);
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      from = stage;
+    }
+    float4* to = reinterpret_cast<float4*>(dst + r * dst_rs);
+    const float4* a4 = reinterpret_cast<const float4*>(add + r * add_rs);
+    for (int j0 = threadIdx.x; j0 < n4; j0 += kPass * nt) {
+      int4 q[kPass];
+      float4 a[kPass];
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) {
+        const int j = j0 + u * nt;
+        if (j < n4) {
+          q[u] = p4[j];
+          if constexpr (ADD) a[u] = a4[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) {
+        const int j = j0 + u * nt;
+        if (j < n4) {
+          float4 v = make_float4(from[q[u].x], from[q[u].y], from[q[u].z],
+                                 from[q[u].w]);
+          if constexpr (ADD)
+            v = make_float4(a[u].x + v.x, a[u].y + v.y, a[u].z + v.z, a[u].w + v.w);
+          to[j] = v;
+        }
+      }
+    }
+    if constexpr (STAGE) __syncthreads();
+  }
+}
+
+// The staged latch pass: for each unlatched row r of the block, with ext2
+// in e2_r (brought into the shared staging row by cp.async first) and
+// ext1 in x1_r: lin1_r[i] = d0_r[i] + la1 with la1 = ext2[inv_pi[i]],
+// written over ext2 in place, and the bit of position i, (a1 + la1) < 0
+// with a1 = d0_r[i] + ext1[i] (the loop's sys + ext1; lin2 at inv_pi[i]
+// holds the same float), into the row's decision words, and the payload's
+// CRC word: the XOR of the packed rows crc_rows[i - F] of its set bits.
+// Rows are r * rs apart (d0: row3).
+__device__ __forceinline__ void latch_rows_staged(
+    float* e2, const float* __restrict__ x1, long long rs,
+    const float* __restrict__ d0, long long row3,
+    const int* __restrict__ inv_pi, const unsigned* __restrict__ crc_rows,
+    float* stage, unsigned* dec, int DW, unsigned* s_x, int nr, int K, int F,
+    const int* s_iter) {
+  const int n4 = K / 4, nt = blockDim.x;
+  const int4* q4 = reinterpret_cast<const int4*>(inv_pi);
+  for (int r = 0; r < nr; ++r) {
+    if (s_iter[r] != 0) continue;
+    float* e2_r = e2 + r * rs;
+    for (int i = 4 * threadIdx.x; i < K; i += 4 * nt)
+      __pipeline_memcpy_async(stage + i, e2_r + i, 16);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    float4* l1 = reinterpret_cast<float4*>(e2_r);
+    const float4* a4 = reinterpret_cast<const float4*>(x1 + r * rs);
+    const float4* d4 = reinterpret_cast<const float4*>(d0 + r * row3);
+    unsigned* dec_r = dec + r * DW;
+    unsigned x = 0u;
+    for (int j0 = threadIdx.x; j0 < n4; j0 += kPass * nt) {
+      int4 q[kPass];
+      float4 sy[kPass], e1[kPass];
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) {
+        const int j = j0 + u * nt;
+        if (j < n4) {
+          q[u] = q4[j];
+          sy[u] = d4[j];
+          e1[u] = a4[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPass; ++u) {
+        const int j = j0 + u * nt;
+        if (j < n4) {
+          const float4 la = make_float4(stage[q[u].x], stage[q[u].y],
+                                        stage[q[u].z], stage[q[u].w]);
+          l1[j] = make_float4(sy[u].x + la.x, sy[u].y + la.y, sy[u].z + la.z,
+                              sy[u].w + la.w);
+          const float4 a1 = make_float4(sy[u].x + e1[u].x, sy[u].y + e1[u].y,
+                                        sy[u].z + e1[u].z, sy[u].w + e1[u].w);
+          const unsigned nib = (unsigned)(a1.x + la.x < 0.f) |
+                               (unsigned)(a1.y + la.y < 0.f) << 1 |
+                               (unsigned)(a1.z + la.z < 0.f) << 2 |
+                               (unsigned)(a1.w + la.w < 0.f) << 3;
+          if (nib != 0u) {
+            atomicOr(dec_r + (j >> 3), nib << ((j & 7) * 4));
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if ((nib >> k & 1u) && 4 * j + k >= F) x ^= crc_rows[4 * j + k - F];
+          }
+        }
+      }
+    }
+    if (x != 0u) atomicXor(s_x + r, x);
+    __syncthreads();
+  }
+}
+
+// ck: the checkpoints [W/R, B * n_w, 8]. A code block's rows (decode_row):
+// lin1, lin2, par1 and par2 of N floats, their tail values (36.212's
+// mapping) and BIG past K + 3 written once, so that the body reads them
+// as v2 reads its rows, D = d0[pi] and ext; on chip in shared memory,
+// staged in ws [B, decode_row].
+template <int R, bool STAGED>
+__global__ void __launch_bounds__(kDecodeThreads, 1)
 turbo_decode_kernel(const float* __restrict__ llr_d,
                     const int* __restrict__ pi, const int* __restrict__ inv_pi,
                     const unsigned* __restrict__ crc_rows, float* ws,
                     float* ck, int* bits, unsigned char* done, int* iters,
                     int B, int K, int F, int n_w, int W, int U, int n_iter,
-                    int dynamic_stop) {
-  const int b = blockIdx.x;
+                    int dynamic_stop, int rows) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_x[kDecodeMaxRows];  // a row's CRC word this iteration
+  __shared__ int s_iter[kDecodeMaxRows];    // the latch's iteration, 0 before
+  __shared__ int s_live;                    // rows not latched
+  const int b0 = blockIdx.x * rows;
+  const int nr = min(rows, B - b0);         // this block's rows
+  const int nl = nr * n_w;                  // and lanes
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int N = n_w * W;
-  const float* d0 = llr_d + (long long)b * 3 * (K + 4);
-  const float* d1 = d0 + (K + 4);
-  const float* d2 = d1 + (K + 4);
-  float* lin1 = ws + (long long)b * 6 * N;
-  float* par1 = lin1 + N;
-  float* lin2 = par1 + N;
-  float* par2 = lin2 + N;
-  float* a1 = par2 + N;
-  float* ext2 = a1 + N;
-  int* brow = bits + (long long)b * K;
-  const long long lane = (long long)b * n_w + tid;
+  const int DW = dec_words(K);
+  const long long row3 = 3LL * (K + 4);
+  const float* d_blk = llr_d + b0 * row3;
+  // Row r's rows at base + r * rs: HI1 reads in1 (lin1) and stores ext1
+  // in ext, the exchange makes lin2 = D + ext1[pi] in in2, HI2 reads in2
+  // and stores ext2 in out2 (on chip ext; staged in1, since the latch pass
+  // then reads ext1 too), the latch makes lin1 = d0 + ext2[inv_pi] in in1.
+  const int N = n_w * W, Np = (N + 3) / 4 * 4;
+  const long long rs = decode_row(K, N);
+  float* stage = smem;                                   // staged: [K]
+  float* base = STAGED ? ws + b0 * rs : smem;
+  float* in1 = base;
+  float* in2 = base + Np;
+  float* par = base + 2 * Np;
+  float* dpi = base + 4 * Np;
+  float* ext = dpi + K;
+  float* out2 = STAGED ? in1 : ext;
+  unsigned* dec = reinterpret_cast<unsigned*>(smem + (STAGED ? K : rows * rs));
   const long long ck_stride = (long long)B * n_w * 8;
-  __shared__ unsigned s_xor[32];
-  __shared__ int s_done, s_iter;
 
-  for (int p = tid; p < N; p += nt) {
-    float l1 = BIG, p1 = BIG, l2 = BIG, p2 = BIG;
-    if (p < K) {
-      l1 = d0[p] + 0.f;
-      p1 = d1[p];
-      p2 = d2[p];
-    } else if (p == K) {
-      l1 = d0[K]; p1 = d1[K]; l2 = d0[K + 2]; p2 = d1[K + 2];
-    } else if (p == K + 1) {
-      l1 = d2[K]; p1 = d0[K + 1]; l2 = d2[K + 2]; p2 = d0[K + 3];
-    } else if (p == K + 2) {
-      l1 = d1[K + 1]; p1 = d2[K + 1]; l2 = d1[K + 3]; p2 = d2[K + 3];
-    }
-    lin1[p] = l1;
-    par1[p] = p1;
-    par2[p] = p2;
-    if (p >= K) lin2[p] = l2;
-  }
-  if (tid == 0) { s_done = 0; s_iter = n_iter; }
-  __syncthreads();
-
-  const bool active = tid < n_w;
-  const long long row = (long long)tid * W;
-  for (int it = 0; it < n_iter; ++it) {
-    if (active) {
-      float* a_row = a1 + row;
-      const float* s_row = d0 + row;
-      const int k_row = K - (int)row;
-      half_iter_lane<R>(lin1 + row, par1 + row, ck + lane * 8, ck_stride,
-                        tid, n_w, W, U,
-                        [=](int p, const float* o, const float* cu) {
-                          float a[R];
+  if (tid < nr) { s_x[tid] = 0u; s_iter[tid] = 0; }
+  if (tid == 0) s_live = nr;
+  // lin1 = d0 + la1 (la1 = 0), par1 and par2, a float4 of each at a time,
+  // kPass of them in flight a thread; each row's four streams s past K:
+  // the tail values d[kTailD[s][j]][K + kTailOff[s][j]], then BIG.
+  const int n4 = K / 4, s4 = (K + 4) / 4, p4 = Np / 4;
+  for (int i0 = tid; i0 < nr * n4; i0 += kPass * nt) {
+    float4 v[kPass][3];
 #pragma unroll
-                          for (int r = 0; r < R; ++r)
-                            a[r] = (p + r < k_row ? s_row[p + r] : 0.f)
-                                   + (o[r] - cu[r]);
-                          store_block<R>(a_row + p, a);
-                        });
-    }
-    __syncthreads();
-    for (int j0 = tid; j0 < K; j0 += kPass * nt) {
-      int q[kPass];
-      float v[kPass];
+    for (int u = 0; u < kPass; ++u) {
+      const int i = i0 + u * nt;
+      if (i < nr * n4) {
+        const int r = i / n4, j = i - r * n4;
+        const float4* d = reinterpret_cast<const float4*>(d_blk + r * row3);
 #pragma unroll
-      for (int u = 0; u < kPass; ++u) q[u] = j0 + u * nt < K ? pi[j0 + u * nt] : 0;
-#pragma unroll
-      for (int u = 0; u < kPass; ++u) v[u] = a1[q[u]];
-#pragma unroll
-      for (int u = 0; u < kPass; ++u)
-        if (j0 + u * nt < K) lin2[j0 + u * nt] = v[u];
-    }
-    __syncthreads();
-    if (active) {
-      float* e_row = ext2 + row;
-      half_iter_lane<R>(lin2 + row, par2 + row, ck + lane * 8, ck_stride,
-                        tid, n_w, W, U,
-                        [e_row](int p, const float* o, const float* cu) {
-                          float e[R];
-#pragma unroll
-                          for (int r = 0; r < R; ++r) e[r] = o[r] - cu[r];
-                          store_block<R>(e_row + p, e);
-                        });
-    }
-    __syncthreads();
-    const bool latched = s_done != 0;
-    unsigned x = 0;
-    for (int i0 = tid; i0 < K; i0 += kPass * nt) {
-      int q[kPass];
-      float la[kPass], sy[kPass], a[kPass];
-      unsigned cr[kPass];
-#pragma unroll
-      for (int u = 0; u < kPass; ++u) {
-        const int i = i0 + u * nt;
-        q[u] = i < K ? inv_pi[i] : 0;
-        sy[u] = i < K ? d0[i] : 0.f;
-        a[u] = i < K ? a1[i] : 0.f;
-        cr[u] = i < K && i >= F ? crc_rows[i - F] : 0u;
+        for (int c = 0; c < 3; ++c) v[u][c] = d[c * s4 + j];
       }
+    }
 #pragma unroll
-      for (int u = 0; u < kPass; ++u) la[u] = ext2[q[u]];
+    for (int u = 0; u < kPass; ++u) {
+      const int i = i0 + u * nt;
+      if (i < nr * n4) {
+        const int r = i / n4, j = i - r * n4;
+        float4* row = reinterpret_cast<float4*>(in1 + r * rs);
+        row[j] = make_float4(v[u][0].x + 0.f, v[u][0].y + 0.f,
+                             v[u][0].z + 0.f, v[u][0].w + 0.f);
+        row[2 * p4 + j] = v[u][1];
+        row[3 * p4 + j] = v[u][2];
+      }
+    }
+  }
+  for (int i = tid; i < nr * 16; i += nt) {
+    const int r = i / 16, s = i % 16 / 4, q = i % 4;
+    const float v = q < 3 ? d_blk[r * row3 + kTailD[s][q] * (K + 4) + K + kTailOff[s][q]]
+                          : BIG;
+    float* row = base + r * rs + kTailRow[s] * Np;
+    for (int k = K + q; k < (q < 3 ? K + q + 1 : N); ++k) row[k] = v;
+  }
+  __syncthreads();
+  permute_rows<false, STAGED>(d_blk, row3, dpi, rs, nullptr, 0, pi, stage, nr,
+                              K, s_iter);
+
+  for (int it = 0; it < n_iter && s_live > 0; ++it) {
+    for (int i = tid; i < nr * DW; i += nt)
+      if (s_iter[i / DW] == 0) dec[i] = 0u;
+    for (int l = tid; l < nl; l += nt) {
+      const int r = l / n_w, w = l - r * n_w;
+      if (s_iter[r] != 0) continue;
+      float* out_r = ext + r * rs;
+      const int row = w * W;
+      auto store = [=](int p, const float* o, const float* cu) {
+        const int P = row + p;
+        if (P >= K) return;
+        float e[R];
 #pragma unroll
-      for (int u = 0; u < kPass; ++u) {
-        const int i = i0 + u * nt;
-        if (i < K) {
-          const float llr = a[u] + la[u];
-          lin1[i] = sy[u] + la[u];
-          if (!latched) {
-            const int bit = llr < 0.f;
-            brow[i] = bit;
-            if (bit) x ^= cr[u];
+        for (int k = 0; k < R; ++k) e[k] = o[k] - cu[k];
+        store_block<R>(out_r + P, e);
+      };
+      half_iter_lane<R>(in1 + r * rs + row, par + r * rs + row,
+                        ck + ((long long)b0 * n_w + l) * 8, ck_stride, w, n_w,
+                        W, U, store);
+    }
+    __syncthreads();
+    permute_rows<true, STAGED>(ext, rs, in2, rs, dpi, rs, pi, stage, nr, K,
+                               s_iter);
+    if constexpr (!STAGED) __syncthreads();
+    for (int l = tid; l < nl; l += nt) {
+      const int r = l / n_w, w = l - r * n_w;
+      if (s_iter[r] != 0) continue;
+      float* out_r = out2 + r * rs;
+      const int row = w * W;
+      auto store = [=](int p, const float* o, const float* cu) {
+        const int P = row + p;
+        if (P >= K) return;
+        float e[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) e[k] = o[k] - cu[k];
+        store_block<R>(out_r + P, e);
+      };
+      half_iter_lane<R>(in2 + r * rs + row, par + Np + r * rs + row,
+                        ck + ((long long)b0 * n_w + l) * 8, ck_stride, w, n_w,
+                        W, U, store);
+    }
+    __syncthreads();
+    if constexpr (STAGED) {
+      latch_rows_staged(in1, ext, rs, d_blk, row3, inv_pi, crc_rows, stage,
+                        dec, DW, s_x, nr, K, F, s_iter);
+    } else {
+      // The latch pass: lin1 = d0 + la1, la1 = ext2[inv_pi], and the bit of
+      // each position, (lin2 + ext2)[inv_pi] < 0, with the payload's CRC.
+      for (int r = 0; r < nr; ++r) {
+        if (s_iter[r] != 0) continue;
+        const float* e2 = ext + r * rs;
+        const float* l2 = in2 + r * rs;
+        float* l1 = in1 + r * rs;
+        const float* d0 = d_blk + r * row3;
+        unsigned* dec_r = dec + r * DW;
+        unsigned x = 0u;
+        for (int i0 = tid; i0 < K; i0 += kPass * nt) {
+          int q[kPass];
+          float sy[kPass];
+          unsigned c[kPass];
+#pragma unroll
+          for (int u = 0; u < kPass; ++u) {
+            const int i = i0 + u * nt;
+            q[u] = i < K ? inv_pi[i] : 0;
+            sy[u] = i < K ? d0[i] : 0.f;
+            c[u] = i < K && i >= F ? crc_rows[i - F] : 0u;
+          }
+#pragma unroll
+          for (int u = 0; u < kPass; ++u) {
+            const int i = i0 + u * nt;
+            if (i < K) {
+              const float e = e2[q[u]];
+              l1[i] = sy[u] + e;
+              if (l2[q[u]] + e < 0.f) {
+                atomicOr(dec_r + (i >> 5), 1u << (i & 31));
+                x ^= c[u];
+              }
+            }
           }
         }
+        if (x != 0u) atomicXor(s_x + r, x);
       }
+      __syncthreads();
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x ^= __shfl_xor_sync(0xffffffffu, x, off);
-    if ((tid & 31) == 0) s_xor[tid >> 5] = x;
-    __syncthreads();
-    if (tid == 0 && !latched) {
-      unsigned r = 0;
-      for (int k = 0; k < nt / 32; ++k) r ^= s_xor[k];
-      if (r == 0) { s_done = 1; s_iter = it + 1; }
+    if (tid < nr && s_iter[tid] == 0) {
+      if (s_x[tid] == 0u) {
+        s_iter[tid] = it + 1;
+        atomicSub(&s_live, 1);
+      }
+      s_x[tid] = 0u;
     }
     __syncthreads();
-    if (dynamic_stop && s_done) break;
   }
 
-  if (tid == 0) {
-    done[b] = (unsigned char)s_done;
-    iters[b] = dynamic_stop && s_done ? s_iter : n_iter;
+  for (int i = tid; i < nr * K; i += nt) {
+    const int r = i / K, k = i - r * K;
+    bits[(long long)b0 * K + i] =
+        s_iter[r] != 0 ? (int)dec_bit(dec + r * DW, k) : 0;
   }
-  if (!s_done)
-    for (int i = tid; i < K; i += nt) brow[i] = 0;
+  if (tid < nr) {
+    done[b0 + tid] = (unsigned char)(s_iter[tid] != 0);
+    iters[b0 + tid] = dynamic_stop && s_iter[tid] != 0 ? s_iter[tid] : n_iter;
+  }
+}
+
+// A launch that takes more than the 48 KB of dynamic shared memory every
+// launch may take opts its kernel in first, on the current device.
+template <typename Kernel>
+int allow_smem(Kernel kernel, long long bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace
@@ -728,23 +950,54 @@ extern "C" int turbo_half_iter_launch(const void* lin, const void* lp, void* out
   return (int)cudaGetLastError();
 }
 
-// llr_d: [B, 3, K + 4] float32; pi, inv_pi: [K] int32 (the QPP permutation
-// and its inverse); crc_rows: [K - F] the packed rows of crc_matrix(K - F);
-// ws: [B, 6, n_w * W] float32, 16-byte aligned when R % 4 == 0; scr: the
-// checkpoints, [(W / R) * B * n_w * 8] float32; bits: [B, K] int32, done:
-// [B] bool, iters: [B] int32, all written. Returns cudaGetLastError().
+// The decode's layout on the current device: rows a block, and whether the
+// exchange rows are staged through device memory. On chip when the group's
+// rows all fit the SMs' shared memory at once: as few rows a block as give
+// every SM a block (at most kDecodeMaxRows), no more than a block's shared
+// memory holds. Else staged at 2 rows a block. Returns rows + 256 * staged.
+extern "C" int turbo_decode_plan(int B, int K, int N) {
+  int dev = 0, n_sm = 1, optin = 48 * 1024, per_sm = 48 * 1024;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  const long long row = decode_smem_bytes(1, K, N, false);
+  const bool staged = row > optin || (long long)B > n_sm * (per_sm / row);
+  if (staged) return 2 + 256;
+  int rows = (B + n_sm - 1) / n_sm;
+  rows = rows < 1 ? 1 : rows > kDecodeMaxRows ? kDecodeMaxRows : rows;
+  while (rows > 1 && decode_smem_bytes(rows, K, N, false) > optin) --rows;
+  return rows;
+}
+
+// llr_d: [B, 3, K + 4] float32, 16-byte aligned, K a multiple of 8 (every
+// QPP size); pi, inv_pi: [K] int32 (the QPP permutation and its inverse),
+// 16-byte aligned; crc_rows: [K - F] the packed rows of crc_matrix(K - F);
+// ws: with staged, [B, decode_row(K, n_w W)] float32, 16-byte aligned;
+// scr: the checkpoints, [(W / R) * B * n_w * 8] float32; bits: [B, K]
+// int32, done: [B] bool, iters: [B] int32, all written. rows, staged: the
+// layout (turbo_decode_plan). Returns cudaGetLastError().
 extern "C" int turbo_decode_launch(const void* llr_d, const void* pi,
                                    const void* inv_pi, const void* crc_rows,
-                                   void* ws, void* scr, void* bits, void* done,
-                                   void* iters, int B, int K, int F, int n_w,
-                                   int W, int U, int R, int n_iter,
-                                   int dynamic_stop, void* stream) {
-  if (B <= 0 || K <= 0 || F < 0 || F >= K || n_iter < 0 || W <= 0 ||
-      U <= 0 || U > W || W % R != 0 || U % R != 0 || n_w <= 0 ||
-      (long long)n_w * W < K + 3 || n_w > 128)
+                                   void* ws, void* scr, void* bits,
+                                   void* done, void* iters, int B, int K,
+                                   int F, int n_w, int W, int U, int R,
+                                   int n_iter, int dynamic_stop, int rows,
+                                   int staged, void* stream) {
+  if (B <= 0 || K <= 0 || K % 8 != 0 || F < 0 || F >= K || n_iter < 0 ||
+      W <= 0 || U <= 0 || U > W || W % R != 0 || U % R != 0 || n_w <= 0 ||
+      (long long)n_w * W < K + 3 || rows < 1 || rows > kDecodeMaxRows)
     return (int)cudaErrorInvalidValue;
-  const int threads = (n_w + 31) / 32 * 32;
-  const dim3 grid(B);
+  const long long smem = decode_smem_bytes(rows, K, n_w * W, staged != 0);
+  // A thread a lane, and at least kSmallGridThreads a block where the grid
+  // leaves SMs idle (its row passes go faster with more threads).
+  int dev = 0, n_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const dim3 grid((B + rows - 1) / rows);
+  int threads = (rows * n_w + 31) / 32 * 32;
+  if ((int)grid.x < n_sm && threads < kSmallGridThreads) threads = kSmallGridThreads;
+  if (threads > kDecodeThreads) threads = kDecodeThreads;
   cudaStream_t st = (cudaStream_t)stream;
   const float* l = (const float*)llr_d;
   const int* p = (const int*)pi;
@@ -755,16 +1008,24 @@ extern "C" int turbo_decode_launch(const void* llr_d, const void* pi,
   int* o = (int*)bits;
   unsigned char* d = (unsigned char*)done;
   int* n = (int*)iters;
-#define TURBO_DECODE(RR)                                                      \
-  turbo_decode_kernel<RR><<<grid, threads, 0, st>>>(                          \
-      l, p, q, c, w, s, o, d, n, B, K, F, n_w, W, U, n_iter, dynamic_stop)
+  int err = 0;
+#define TURBO_DECODE(RR, ST)                                                  \
+  err = allow_smem(turbo_decode_kernel<RR, ST>, smem);                        \
+  if (err == 0)                                                               \
+    turbo_decode_kernel<RR, ST><<<grid, threads, smem, st>>>(                 \
+        l, p, q, c, w, s, o, d, n, B, K, F, n_w, W, U, n_iter, dynamic_stop,  \
+        rows)
+#define TURBO_DECODE_R(RR)                                                    \
+  if (staged) { TURBO_DECODE(RR, true); } else { TURBO_DECODE(RR, false); }
   switch (R) {
-    case 8: TURBO_DECODE(8); break;
-    case 4: TURBO_DECODE(4); break;
-    case 2: TURBO_DECODE(2); break;
-    case 1: TURBO_DECODE(1); break;
+    case 8: TURBO_DECODE_R(8); break;
+    case 4: TURBO_DECODE_R(4); break;
+    case 2: TURBO_DECODE_R(2); break;
+    case 1: TURBO_DECODE_R(1); break;
     default: return (int)cudaErrorInvalidValue;
   }
+#undef TURBO_DECODE_R
 #undef TURBO_DECODE
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }

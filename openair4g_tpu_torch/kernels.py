@@ -50,8 +50,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.demap_llr_launch.restype = i
     lib.turbo_half_iter_v1_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.turbo_half_iter_v1_launch.restype = i
-    lib.turbo_decode_launch.argtypes = [p] * 9 + [i] * 9 + [p]
+    lib.turbo_decode_launch.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.turbo_decode_launch.restype = i
+    lib.turbo_decode_plan.argtypes = [i] * 3
+    lib.turbo_decode_plan.restype = i
     lib.viterbi_launch.argtypes = [p, p, i, i, i, p]
     lib.viterbi_launch.restype = i
     lib.viterbi_search_launch.argtypes = [p, ll, i, p] + [i] * 5 + [p] * 3

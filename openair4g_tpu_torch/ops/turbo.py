@@ -232,9 +232,11 @@ def turbo_decode(llr_d, cfg: TurboDecoderConfig, iters=None):
     if dev.type != "cuda":
         raise ValueError(f"turbo_decode: llr_d on {dev}; CUDA or CPU only")
     pi = qpp_interleaver(cfg.K)
+    llr_d = llr_d.to(torch.float32).contiguous()
+    if llr_d.data_ptr() % 16:              # a view at an odd offset
+        llr_d = llr_d.clone()
     return turbo_cuda.decode(
-        llr_d.to(torch.float32).contiguous(),
-        device_plan(pi, dev, dtype=torch.int32),
+        llr_d, device_plan(pi, dev, dtype=torch.int32),
         device_plan(pi, dev, _inverse_perm, torch.int32), cfg.F, cfg.n_iter,
         cfg.window, cfg.warmup, cfg.crc_kind, cfg.dynamic_stop, iters)
 

@@ -426,16 +426,27 @@ def half_iteration_prepped(lin, gpf, gpb, W: int, U: int):
 
 # --------------------------------------------------------------- decode --
 
+def decode_plan(B: int, K: int, W: int):
+    """The decode kernel's layout on the current device for B rows of K in
+    windows of W, (rows a block, staged): the code block rows each block
+    takes, and whether their exchange rows are staged through device
+    memory (else they stay in shared memory). The launch's own choice,
+    turbo_decode_plan in the .cu."""
+    plan = kernels.load().turbo_decode_plan(B, K, -(-(K + 3) // W) * W)
+    return plan % 256, bool(plan // 256)
+
+
 def decode(llr_d, pi, inv_pi, F: int, n_iter: int, W: int, U: int,
            crc_kind: str, dynamic_stop: bool, iters=None):
     """The turbo decode of a (K, F) group in one launch of
     turbo_decode_kernel, no host sync. llr_d: [B, 3, K + 4] float32 LLRs
-    of the d0/d1/d2 streams; pi, inv_pi: [K] int32, the QPP permutation
-    and its inverse; all contiguous on one CUDA device. Returns (bits
-    [B, K] int32, done [B] bool), equal bit for bit to
-    ops/turbo.turbo_decode_ref's. `iters`, an int32 [B] tensor on the
-    device, receives the iterations each row ran (its latch's with
-    dynamic_stop, else n_iter)."""
+    of the d0/d1/d2 streams, K a multiple of 8 (every QPP size); pi,
+    inv_pi: [K] int32, the QPP permutation and its inverse; all contiguous
+    and 16-byte aligned on one CUDA device. Returns (bits [B, K] int32,
+    done [B] bool), equal bit for bit to ops/turbo.turbo_decode_ref's.
+    `iters`, an int32 [B] tensor on the device, receives the iterations
+    each row ran (its latch's with dynamic_stop, else n_iter). The layout
+    is decode_plan's."""
     args = (llr_d, pi, inv_pi) + (() if iters is None else (iters,))
     if llr_d.device.type != "cuda" or any(a.device != llr_d.device
                                           for a in args):
@@ -445,9 +456,9 @@ def decode(llr_d, pi, inv_pi, F: int, n_iter: int, W: int, U: int,
         raise ValueError(f"turbo decode: llr_d {tuple(llr_d.shape)} must be"
                          " [B, 3, K + 4]")
     B, K = llr_d.shape[0], llr_d.shape[2] - 4
-    if not (0 < U <= W and 0 <= F < K):
-        raise ValueError(f"turbo decode: need 0 < U={U} <= W={W} and 0 <= "
-                         f"F={F} < K={K}")
+    if not (0 < U <= W and 0 <= F < K and K % 8 == 0):
+        raise ValueError(f"turbo decode: need 0 < U={U} <= W={W}, 0 <= "
+                         f"F={F} < K={K} and K a multiple of 8")
     N = -(-(K + 3) // W) * W
     if llr_d.dtype != torch.float32:
         raise TypeError("turbo decode: float32 LLRs required")
@@ -458,10 +469,11 @@ def decode(llr_d, pi, inv_pi, F: int, n_iter: int, W: int, U: int,
             raise ValueError(f"turbo decode: {name} must be int32 {shape}")
     if not all(a.is_contiguous() for a in args):
         raise ValueError("turbo decode: contiguous inputs required")
+    for name, t in (("llr_d", llr_d), ("pi", pi), ("inv_pi", inv_pi)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"turbo decode: {name} is not 16-byte aligned "
+                             "(the half-iterations load 16-byte vectors)")
     n_w = N // W
-    if n_w > 128:
-        raise ValueError(f"turbo decode: {n_w} windows a row, at most 128 "
-                         "(one thread a window in a block of 128)")
     dev = llr_d.device
     bits = torch.empty(B, K, dtype=torch.int32, device=dev)
     done = torch.empty(B, dtype=torch.bool, device=dev)
@@ -469,19 +481,20 @@ def decode(llr_d, pi, inv_pi, F: int, n_iter: int, W: int, U: int,
         return bits, done
     if iters is None:
         iters = torch.empty(B, dtype=torch.int32, device=dev)
-    ws = torch.empty(B, 6, N, dtype=torch.float32, device=dev)
-    if ws.data_ptr() % 16:
-        raise ValueError("turbo decode: the workspace is not 16-byte aligned"
-                         " (the half-iterations load float4 vectors)")
+    rows, staged = decode_plan(B, K, W)
+    # Staged, each code block's rows in device memory: lin1, lin2, par1 and
+    # par2 of N (rounded up to 16 bytes), D and ext of K (decode_row).
+    ws = torch.empty(B * (4 * (-(-N // 4) * 4) + 2 * K) if staged else 0,
+                     dtype=torch.float32, device=dev)
     scr = torch.empty(scratch_numel(B * n_w, W, U), dtype=torch.float32,
                       device=dev)
-    rows = device_plan(crc_packed_rows(K - F, crc_kind), dev)
-    lib = kernels.load()
-    err = lib.turbo_decode_launch(
-        llr_d.data_ptr(), pi.data_ptr(), inv_pi.data_ptr(), rows.data_ptr(),
-        ws.data_ptr(), scr.data_ptr(), bits.data_ptr(), done.data_ptr(),
-        iters.data_ptr(), B, K, F, n_w, W, U, pick_unroll(W, U), n_iter,
-        int(dynamic_stop), kernels.stream_of(llr_d))
+    rows_crc = device_plan(crc_packed_rows(K - F, crc_kind), dev)
+    err = kernels.load().turbo_decode_launch(
+        llr_d.data_ptr(), pi.data_ptr(), inv_pi.data_ptr(),
+        rows_crc.data_ptr(), ws.data_ptr(), scr.data_ptr(), bits.data_ptr(),
+        done.data_ptr(), iters.data_ptr(), B, K, F, n_w, W, U,
+        pick_unroll(W, U), n_iter, int(dynamic_stop), rows, int(staged),
+        kernels.stream_of(llr_d))
     kernels.check(err, "turbo_decode")
     count_launch("turbo_decode", (B, K, F, W, U, n_iter, crc_kind,
                                   bool(dynamic_stop)))

@@ -108,13 +108,15 @@ def test_packed_crc_rows_give_the_remainder(kind):
     assert rows.dtype == np.int32 and rows.max() < 1 << 24
 
 
-def _decode_schedule_ref(llr_d, cfg):
-    """The kernel's schedule, row by row in plain PyTorch: the prologue's
-    rows, then per iteration HI1 (the checkpointed v2 order) with a1 = sys
-    + ext1 in its store, the exchange lin2[j] = a1[pi[j]], HI2, and the
-    latch (la1[i] = ext2[inv_pi[i]], lin1 = sys + la1, the packed-XOR CRC of
-    the payload, the row's own exit with dynamic_stop). Returns (bits,
-    done, iters)."""
+def _decode_schedule_ref(llr_d, cfg, staged=False):
+    """The kernel's schedule, row by row in plain PyTorch. Per iteration:
+    HI1 (the checkpointed v2 order) on lin1, storing ext1 = llr - lin1; the
+    exchange lin2 = D + ext1[pi] with D = d0[pi]; HI2 on lin2, storing
+    ext2; the latch pass lin1 = d0 + ext2[inv_pi] and the decision of
+    position i, (lin2 + ext2)[inv_pi[i]] < 0 (on chip) or (a1 +
+    ext2[inv_pi])[i] < 0 with a1 = d0 + ext1 (staged, where lin2 is no
+    longer at hand); the packed-XOR CRC of the payload; the row's own exit
+    once latched. Returns (bits, done, iters)."""
     K, F, W, U = cfg.K, cfg.F, cfg.window, cfg.warmup
     N = -(-(K + 3) // W) * W
     pi = torch.from_numpy(turbo.qpp_interleaver(K).astype(np.int64))
@@ -127,28 +129,31 @@ def _decode_schedule_ref(llr_d, cfg):
     for b in range(B):
         d0, d1, d2 = llr_d[b]
         lin1, par1, lin2, par2 = (torch.full((N,), BIG) for _ in range(4))
-        lin1[:K], par1[:K], par2[:K] = d0[:K] + 0.0, d1[:K], d2[:K]
+        par1[:K], par2[:K] = d1[:K], d2[:K]
         lin1[K:K + 3] = torch.stack([d0[K], d2[K], d1[K + 1]])
         par1[K:K + 3] = torch.stack([d1[K], d0[K + 1], d2[K + 1]])
         lin2[K:K + 3] = torch.stack([d0[K + 2], d2[K + 2], d1[K + 3]])
         par2[K:K + 3] = torch.stack([d1[K + 2], d0[K + 3], d2[K + 3]])
+        lin1[:K] = d0[:K] + 0.0
+        D = d0[:K][pi]
         for it in range(cfg.n_iter):
             llr1 = _half_iteration_ckpt_ref(lin1[None], par1[None], W, U)[0]
-            a1 = d0[:K] + (llr1[:K] - lin1[:K])
-            lin2[:K] = a1[pi]
+            ext1 = llr1[:K] - lin1[:K]
+            lin2[:K] = D + ext1[pi]
             llr2 = _half_iteration_ckpt_ref(lin2[None], par2[None], W, U)[0]
-            la1 = (llr2[:K] - lin2[:K])[inv]
-            lin1[:K] = d0[:K] + la1
-            bit = ((a1 + la1) < 0).to(torch.int32)
-            if done[b]:
-                continue
+            e = llr2[:K] - lin2[:K]
+            if staged:
+                bit = (((d0[:K] + ext1) + e[inv]) < 0).to(torch.int32)
+            else:
+                bit = ((lin2[:K][inv] + e[inv]) < 0).to(torch.int32)
+            lin1[:K] = d0[:K] + e[inv]
             bits[b] = bit
             payload = bit[F:].numpy().astype(bool)
             if np.bitwise_xor.reduce(rows[payload], initial=0) == 0:
                 done[b] = True
                 if cfg.dynamic_stop:
                     iters[b] = it + 1
-                    break
+                break
         if not done[b]:
             bits[b] = 0
     return bits, done, iters
@@ -161,19 +166,39 @@ def _decode_schedule_ref(llr_d, cfg):
                           (256, 0, "crc24a", 44, 20, 2.3),
                           (200, 0, "crc24a", 45, 15, 2.3)])
 def test_kernel_schedule_equals_plain_loop(K, F, kind, W, U, sigma, dyn):
-    """Bits, flags and iterations run; W, U = 44, 20 and 45, 15 run the
-    half-iterations at R = 4 and 1."""
+    """Bits, flags and iterations run, in both layouts' orders; W, U = 44,
+    20 and 45, 15 run the half-iterations at R = 4 and 1."""
     llr = torch.from_numpy(_coded(K, F, kind, 8, sigma, 3 * K)[0])
     cfg = turbo.TurboDecoderConfig(K=K, F=F, n_iter=5, window=W, warmup=U,
                                    crc_kind=kind, dynamic_stop=dyn)
     iters = torch.zeros(8, dtype=torch.int32)
     want = turbo.turbo_decode_ref(llr, cfg, iters)
-    got = _decode_schedule_ref(llr, cfg)
     assert 0 < int(want[1].sum()) < 8, "want a mixed batch"
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert torch.equal(got[2], iters)
+    for staged in (False, True):
+        got = _decode_schedule_ref(llr, cfg, staged)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2], iters)
     if not dyn:
         assert bool((iters == 5).all())
+
+
+@pytest.mark.parametrize("dyn", [True, False])
+def test_kernel_schedule_above_128_windows(dyn):
+    """K = 6,144 in windows of W = 40 (U = 8): 154 windows a row, more than
+    one thread a window in a block of 128 could take; bits, flags and
+    iterations equal to the plain loop's in both layouts' orders."""
+    K, W, U = 6144, 40, 8
+    llr = torch.from_numpy(_coded(K, 0, "crc24a", 3, 2.2, 8)[0])
+    cfg = turbo.TurboDecoderConfig(K=K, n_iter=4, window=W, warmup=U,
+                                   dynamic_stop=dyn)
+    assert -(-(K + 3) // W) == 154
+    iters = torch.zeros(3, dtype=torch.int32)
+    want = turbo.turbo_decode_ref(llr, cfg, iters)
+    assert 0 < int(want[1].sum()) < 3, "want a mixed batch"
+    for staged in (False, True):
+        got = _decode_schedule_ref(llr, cfg, staged)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2], iters)
 
 
 def test_plain_loop_counts_iterations_to_each_latch():
@@ -231,8 +256,8 @@ def cuda():
 def test_kernel_equals_plain_loop_on_the_card(cuda, K, F, kind, W, U, sigma,
                                               dyn):
     """One launch a decode, bits, flags and iterations equal to the host
-    loop's (its half-iterations on the v2 kernel) bit for bit; W = 24 and
-    48 give rows of 43 and 126 windows, so two and four warps a block."""
+    loop's (its half-iterations on the v2 kernel) bit for bit, in the
+    launch's own layout; W = 24 and 48 give rows of 43 and 126 windows."""
     llr = torch.from_numpy(_coded(K, F, kind, 16, sigma, K)[0]).to(cuda)
     cfg = turbo.TurboDecoderConfig(K=K, F=F, n_iter=6, window=W, warmup=U,
                                    crc_kind=kind, dynamic_stop=dyn)
@@ -245,6 +270,69 @@ def test_kernel_equals_plain_loop_on_the_card(cuda, K, F, kind, W, U, sigma,
     want = turbo.turbo_decode_ref(llr, cfg, it_r)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(it_k, it_r)
+
+
+def _card_equals_loop(llr, cfg):
+    """The kernel (one launch) against the host loop, bits, flags and
+    iterations, in both stop modes."""
+    B = llr.shape[0]
+    pi = turbo.qpp_interleaver(cfg.K)
+    pi_d = torch.from_numpy(pi).to(llr.device)
+    inv_d = torch.from_numpy(turbo._inverse_perm(pi).astype(np.int32)).to(
+        llr.device)
+    for dyn in (True, False):
+        c = turbo.TurboDecoderConfig(**{**cfg.__dict__, "dynamic_stop": dyn})
+        it_k = torch.zeros(B, dtype=torch.int32, device=llr.device)
+        it_r = torch.zeros_like(it_k)
+        before = launch_counts()["turbo_decode"]
+        got = turbo_cuda.decode(llr, pi_d, inv_d, c.F, c.n_iter, c.window,
+                                c.warmup, c.crc_kind, dyn, it_k)
+        torch.cuda.synchronize()
+        assert launch_counts()["turbo_decode"] == before + 1
+        want = turbo.turbo_decode_ref(llr, c, it_r)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(it_k, it_r)
+
+
+def _batch_for(K, W, rows, staged):
+    """The fewest rows B at which the launch picks `rows` a block and the
+    layout `staged`, with B not a multiple of rows (so a block takes fewer
+    than the others) where rows > 1."""
+    for B in range(1, 8192):
+        if (turbo_cuda.decode_plan(B, K, W) == (rows, staged)
+                and (rows == 1 or B % rows)):
+            return B
+    pytest.fail(f"the launch picks rows={rows}, staged={staged} at no B")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,staged", [(1, False), (2, False), (3, False),
+                                         (4, False), (2, True)])
+def test_kernel_layouts_on_the_card(cuda, rows, staged):
+    """Each layout the launch picks at K = 1,024 (on chip at 1 to 4 rows a
+    block as the group grows, staged past what the SMs' shared memory
+    holds), at the fewest rows that reach it: B = 1, then B not a multiple
+    of the rows a block; equal to the host loop."""
+    B = _batch_for(1024, 96, rows, staged)
+    llr = torch.from_numpy(_coded(1024, 0, "crc24a", B, 2.3, B)[0]).to(cuda)
+    cfg = turbo.TurboDecoderConfig(K=1024, n_iter=6, window=96)
+    _card_equals_loop(llr, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("W,U", [(48, 24), (40, 8)])
+def test_kernel_above_128_windows_on_the_card(cuda, W, U, staged):
+    """K = 6,144 in rows of 129 (W = 48) and 154 (W = 40) windows, which
+    the kernel once refused, on chip and staged (the fewest rows the launch
+    stages): equal to the host loop."""
+    B = 6 if not staged else next(
+        b for b in range(1, 8192)
+        if turbo_cuda.decode_plan(b, 6144, W)[1])
+    assert turbo_cuda.decode_plan(B, 6144, W)[1] == staged
+    llr = torch.from_numpy(_coded(6144, 0, "crc24a", B, 2.2, W)[0]).to(cuda)
+    cfg = turbo.TurboDecoderConfig(K=6144, n_iter=5, window=W, warmup=U)
+    _card_equals_loop(llr, cfg)
 
 
 @pytest.mark.cuda
@@ -260,7 +348,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                           pi, pi, 0, 6, 48, 24, "crc24a", True)
     with pytest.raises(ValueError):
         turbo_cuda.decode(llr, pi, pi, 136, 6, 48, 24, "crc24a", True)
-    pi = torch.zeros(6144, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):          # 129 windows of 48
-        turbo_cuda.decode(torch.zeros(2, 3, 6148, device=cuda), pi, pi, 0, 6,
-                          48, 24, "crc24a", True)
+    with pytest.raises(ValueError):          # 16-byte vectors: aligned rows
+        turbo_cuda.decode(torch.zeros(2 * 3 * 140 + 1, device=cuda)[1:]
+                          .view(2, 3, 140), pi, pi, 0, 6, 48, 24, "crc24a",
+                          True)
