@@ -16,6 +16,7 @@ from ..ops.rate_match import (RateMatchMaps, block_e_sizes, compute_ncb,
                               rate_match_tx, w_to_d_llr)
 from ..ops.segmentation import Segmentation, segment_tb
 from ..tables.tbs import get_G_dl, get_Qm, get_TBS_DL
+from ..utils.tracing import annotate
 
 
 @dataclass(frozen=True)
@@ -76,28 +77,31 @@ class DlschCodec:
         """tb_bits [B, TBS] -> list of per-block d_flat [B, 3*(K+4)]."""
         seg = self.seg
         B = tb_bits.shape[0]
-        tb_bits = tb_bits.to(torch.int32)
-        crc_a = crc_device(tb_bits, "crc24a").round().to(torch.int32)
-        b = torch.cat([tb_bits, crc_a], dim=1)
-        blocks = []
-        pos = 0
-        for r, K in enumerate(self.block_Ks):
-            n = self.block_payload[r]
-            data = b[:, pos:pos + n]
-            pos += n
-            if r == 0 and seg.F:
-                data = torch.cat([data.new_zeros(B, seg.F), data], dim=1)
-            if seg.C > 1:
-                crc_b = crc_device(data, "crc24b").round().to(torch.int32)
-                data = torch.cat([data, crc_b], dim=1)
-            blocks.append(data)
-        return [d.reshape(B, -1) for d in self._encode_blocks(blocks)]
+        with annotate("oai4g:encode.crc_seg"):
+            tb_bits = tb_bits.to(torch.int32)
+            crc_a = crc_device(tb_bits, "crc24a").round().to(torch.int32)
+            b = torch.cat([tb_bits, crc_a], dim=1)
+            blocks = []
+            pos = 0
+            for r, K in enumerate(self.block_Ks):
+                n = self.block_payload[r]
+                data = b[:, pos:pos + n]
+                pos += n
+                if r == 0 and seg.F:
+                    data = torch.cat([data.new_zeros(B, seg.F), data], dim=1)
+                if seg.C > 1:
+                    crc_b = crc_device(data, "crc24b").round().to(torch.int32)
+                    data = torch.cat([data, crc_b], dim=1)
+                blocks.append(data)
+        with annotate("oai4g:encode.turbo"):
+            return [d.reshape(B, -1) for d in self._encode_blocks(blocks)]
 
     def select_e(self, d_flats, rv: int | None = None):
         """Rate-match the encoded streams for one redundancy version."""
         maps = self.maps_by_rv[self.cfg.rv if rv is None else rv]
-        return torch.cat([rate_match_tx(d, maps[r])
-                          for r, d in enumerate(d_flats)], dim=1)
+        with annotate("oai4g:encode.rate_match"):
+            return torch.cat([rate_match_tx(d, maps[r])
+                              for r, d in enumerate(d_flats)], dim=1)
 
     def encode(self, tb_bits, rv: int | None = None):
         """tb_bits [B, TBS] int {0,1} -> e [B, G] int32."""
@@ -131,49 +135,53 @@ class DlschCodec:
         cfg, seg = self.cfg, self.seg
         maps = self.maps_by_rv[cfg.rv if rv is None else rv]
         B = e_llr.shape[0]
-        pos = 0
-        new_w = []
-        d_llrs = []
-        for r in range(seg.C):
-            E = self.Es[r]
-            w = rate_match_rx(e_llr[:, pos:pos + E], maps[r],
-                              None if w_soft is None else w_soft[r])
-            pos += E
-            new_w.append(w)
-            d_llrs.append(w_to_d_llr(w, maps[r]))
+        with annotate("oai4g:decode.dematch"):
+            pos = 0
+            new_w = []
+            d_llrs = []
+            for r in range(seg.C):
+                E = self.Es[r]
+                w = rate_match_rx(e_llr[:, pos:pos + E], maps[r],
+                                  None if w_soft is None else w_soft[r])
+                pos += E
+                new_w.append(w)
+                d_llrs.append(w_to_d_llr(w, maps[r]))
 
-        win = cfg.decoder_window
-        if win is None:
-            win = 96 if e_llr.device.type == "cpu" else 240
-        results = [None] * seg.C
-        by_plan = {}
-        for r, K in enumerate(self.block_Ks):
-            by_plan.setdefault((K, seg.F if r == 0 else 0), []).append(r)
-        for (K, F), rs in by_plan.items():
-            stacked = torch.cat([d_llrs[r] for r in rs], dim=0)
-            dcfg = turbo.TurboDecoderConfig(
-                K=K, F=F, n_iter=cfg.n_turbo_iter, window=win,
-                warmup=cfg.decoder_warmup,
-                crc_kind="crc24b" if seg.C > 1 else "crc24a",
-                dynamic_stop=dynamic_stop)
-            ran = None
-            if iters is not None:
-                ran = torch.empty(stacked.shape[0], dtype=torch.int32,
-                                  device=stacked.device)
-                iters.append(((K, F), ran))
-            bits, ok = turbo.turbo_decode(stacked, dcfg, ran)
-            for i, r in enumerate(rs):
-                results[r] = (bits[i * B:(i + 1) * B], ok[i * B:(i + 1) * B])
+        with annotate("oai4g:decode.turbo"):
+            win = cfg.decoder_window
+            if win is None:
+                win = 96 if e_llr.device.type == "cpu" else 240
+            results = [None] * seg.C
+            by_plan = {}
+            for r, K in enumerate(self.block_Ks):
+                by_plan.setdefault((K, seg.F if r == 0 else 0), []).append(r)
+            for (K, F), rs in by_plan.items():
+                stacked = torch.cat([d_llrs[r] for r in rs], dim=0)
+                dcfg = turbo.TurboDecoderConfig(
+                    K=K, F=F, n_iter=cfg.n_turbo_iter, window=win,
+                    warmup=cfg.decoder_warmup,
+                    crc_kind="crc24b" if seg.C > 1 else "crc24a",
+                    dynamic_stop=dynamic_stop)
+                ran = None
+                if iters is not None:
+                    ran = torch.empty(stacked.shape[0], dtype=torch.int32,
+                                      device=stacked.device)
+                    iters.append(((K, F), ran))
+                bits, ok = turbo.turbo_decode(stacked, dcfg, ran)
+                for i, r in enumerate(rs):
+                    results[r] = (bits[i * B:(i + 1) * B],
+                                  ok[i * B:(i + 1) * B])
 
-        payloads = []
-        all_ok = torch.ones(B, dtype=torch.bool, device=e_llr.device)
-        L = 24 if seg.C > 1 else 0
-        for r in range(seg.C):
-            bits, ok = results[r]
-            F = seg.F if r == 0 else 0
-            payloads.append(bits[:, F:bits.shape[1] - L])
-            all_ok = all_ok & ok
-        b_hat = torch.cat(payloads, dim=1)                 # [B, TBS+24]
-        rem = crc_remainder(b_hat, crc_matrix(cfg.tbs + 24, "crc24a"))
-        tb_ok = all_ok & torch.all(rem < 0.5, dim=-1)
-        return b_hat[:, :cfg.tbs], tb_ok, new_w
+        with annotate("oai4g:decode.crc"):
+            payloads = []
+            all_ok = torch.ones(B, dtype=torch.bool, device=e_llr.device)
+            L = 24 if seg.C > 1 else 0
+            for r in range(seg.C):
+                bits, ok = results[r]
+                F = seg.F if r == 0 else 0
+                payloads.append(bits[:, F:bits.shape[1] - L])
+                all_ok = all_ok & ok
+            b_hat = torch.cat(payloads, dim=1)                 # [B, TBS+24]
+            rem = crc_remainder(b_hat, crc_matrix(cfg.tbs + 24, "crc24a"))
+            tb_ok = all_ok & torch.all(rem < 0.5, dim=-1)
+            return b_hat[:, :cfg.tbs], tb_ok, new_w

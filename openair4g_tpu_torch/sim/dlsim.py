@@ -47,6 +47,7 @@ from ..phy.pdcch import (BITS_PER_CCE, cfi_encode, common_search_candidates,
 from ..phy.pdsch import DlschCodec, DlschConfig
 from ..phy.resource_grid import extract_data_res, fill_grid, make_grid_map
 from ..utils import profiler
+from ..utils.tracing import annotate
 from .channels import (PROFILES, ChannelModel, apply_channel_grid,
                        apply_channel_grid_timevar, apply_channel_time,
                        draw_taps_timevar, fir_freq_response,
@@ -268,6 +269,7 @@ class DlsimFading:
         self._ds, self._dc = _idx(gm.data_sym, dev), _idx(gm.data_sc, dev)
         self._adaptive_prior = None
         self.dci_miss = 0
+        self._stage_meas = False   # sweep(profile=True): time the stages
         self.pdcch_on = cfg.with_pdcch
         if cfg.with_pdcch:
             self._init_pdcch()
@@ -450,52 +452,64 @@ class DlsimFading:
         dev = self.device
         B, A, Qm = tb_bits.shape[0], cfg.n_rx, codec.cfg.Qm
         n0 = float(np.float32(n0))
-        e = torch.bitwise_xor(codec.select_e(d_flats, rnd & 3), self._scr)
-        grid = fill_grid(map_symbols(e, Qm), gm)
-        if self.pdcch_on:
-            grid[:, self._p_sym, self._p_bin] = self._pdcch_syms
-            grid[:, self._c_sym, self._c_bin] = self._pcfich_syms
-        noise = _noise(noise_normals, n0, dev).reshape(B * A, -1)
-        rgrid, H, taps = self._channel(rnd, grid, tap_draw, noise, taps_prev)
-        y = extract_data_res(rgrid, gm).reshape(B, A, -1)
-        if cfg.perfect_ce:
-            H_all = H
-        elif cfg.est_mode == "dd":
-            H_all = self._dd_estimate(rgrid, y, W, n0)[:, :, None]
-        elif cfg.est_mode == "joint":
-            H_all = estimate_channel_joint(rgrid, gm, W)[:, :1].reshape(
-                B, A, 1, -1)
-        else:
-            H_all = estimate_channel(rgrid, gm, W).reshape(
-                B, A, self.fp.symbols_per_subframe, -1)
+        with annotate("oai4g:bitchain.encode"):
+            e = codec.select_e(d_flats, rnd & 3)
+        with annotate("oai4g:tx.map"):
+            e = torch.bitwise_xor(e, self._scr)
+            grid = fill_grid(map_symbols(e, Qm), gm)
+            if self.pdcch_on:
+                grid[:, self._p_sym, self._p_bin] = self._pdcch_syms
+                grid[:, self._c_sym, self._c_bin] = self._pcfich_syms
+        with annotate("oai4g:frontend"):
+            with annotate("oai4g:frontend.channel"):
+                noise = _noise(noise_normals, n0, dev).reshape(B * A, -1)
+                rgrid, H, taps = self._channel(rnd, grid, tap_draw, noise,
+                                               taps_prev)
+            with annotate("oai4g:frontend.estimate"):
+                y = extract_data_res(rgrid, gm).reshape(B, A, -1)
+                if cfg.perfect_ce:
+                    H_all = H
+                elif cfg.est_mode == "dd":
+                    H_all = self._dd_estimate(rgrid, y, W, n0)[:, :, None]
+                elif cfg.est_mode == "joint":
+                    H_all = estimate_channel_joint(
+                        rgrid, gm, W)[:, :1].reshape(B, A, 1, -1)
+                else:
+                    H_all = estimate_channel(rgrid, gm, W).reshape(
+                        B, A, self.fp.symbols_per_subframe, -1)
 
-        def at(sym, sc):    # H_all [B, A, nsym or 1, n_sc] at REs -> [B, A, N]
-            if H_all.shape[2] == 1:
-                return H_all[:, :, 0, sc]
-            return H_all[:, :, sym, sc]
+            def at(sym, sc):  # H_all [B, A, nsym or 1, n_sc] at REs: [B, A, N]
+                if H_all.shape[2] == 1:
+                    return H_all[:, :, 0, sc]
+                return H_all[:, :, sym, sc]
 
-        # MRC over the RX antennas; the estimation-error variance adds to
-        # the per-RE noise. The [B, A, N] antenna planes go in as views
-        # and are read where they lie.
-        llr = mrc_llr(y.transpose(1, 2),
-                      at(self._ds, self._dc).transpose(1, 2),
-                      n0 + ev, Qm).reshape(B, -1) * self._scr_sgn
-        if self.pdcch_on:
-            # a missed DCI voids the round: its LLRs add nothing
-            y_c = rgrid[:, self._p_sym, self._p_bin].reshape(B, A, -1)
-            llr_c = mrc_llr(y_c.transpose(1, 2),
-                            at(self._p_sym, self._p_sc).transpose(1, 2),
-                            n0, 2).reshape(B, -1)
-            found, bits, _ = dci_blind_decode(
-                llr_c * self._pd_sgn, len(self.dci_payload), cfg.rnti,
-                self.dci_cands)
-            dci_ok = found & torch.all(bits == self._dci_expected, dim=-1)
-            llr = llr * dci_ok[:, None]
-        else:
-            dci_ok = torch.ones(B, dtype=torch.bool, device=dev)
-        tb_hat, ok, w_soft = codec.decode(llr, w_soft=w_soft, rv=rnd & 3)
-        return RoundResult(ok & dci_ok, dci_ok,
-                           (tb_hat != tb_bits).sum(dim=1), w_soft), taps
+            # MRC over the RX antennas; the estimation-error variance adds
+            # to the per-RE noise. The [B, A, N] antenna planes go in as
+            # views and are read where they lie.
+            with annotate("oai4g:frontend.detect"):
+                llr = mrc_llr(y.transpose(1, 2),
+                              at(self._ds, self._dc).transpose(1, 2),
+                              n0 + ev, Qm).reshape(B, -1) * self._scr_sgn
+        with annotate("oai4g:control.dci"):
+            if self.pdcch_on:
+                # a missed DCI voids the round: its LLRs add nothing
+                y_c = rgrid[:, self._p_sym, self._p_bin].reshape(B, A, -1)
+                llr_c = mrc_llr(y_c.transpose(1, 2),
+                                at(self._p_sym, self._p_sc).transpose(1, 2),
+                                n0, 2).reshape(B, -1)
+                found, bits, _ = dci_blind_decode(
+                    llr_c * self._pd_sgn, len(self.dci_payload), cfg.rnti,
+                    self.dci_cands)
+                dci_ok = found & torch.all(bits == self._dci_expected, dim=-1)
+                llr = llr * dci_ok[:, None]
+            else:
+                dci_ok = torch.ones(B, dtype=torch.bool, device=dev)
+        with annotate("oai4g:bitchain.decode"):
+            tb_hat, ok, w_soft = codec.decode(llr, w_soft=w_soft, rv=rnd & 3)
+        with annotate("oai4g:sim.harq"):
+            res = RoundResult(ok & dci_ok, dci_ok,
+                              (tb_hat != tb_bits).sum(dim=1), w_soft)
+        return res, taps
 
     def trial(self, tb_bits, tap_normals, noise_normals, n0, W, ev):
         """[B] trials through every HARQ round on injected draws.
@@ -506,27 +520,34 @@ class DlsimFading:
         AoA normals [B] beside it for Rice1/Rice8) and noise_normals[r]
         [B, n_rx, samples_per_tti, 2]; n0 the noise variance; W, ev from
         wiener/err_var (or convert.estimator_state_from_reference).
-        Stage times feed utils/profiler under the reference's names
-        (dlsim.c:3266+'s time_meas of every stage)."""
+        Under sweep(profile=True) stage times feed utils/profiler under the
+        reference's names (dlsim.c:3266+'s time_meas of every stage); each
+        stage waits for its result on the device there, and only there."""
+        meas = self._stage_meas
         t0 = time.perf_counter()
-        tb_bits = tb_bits.to(self.device)
-        d_flats = self.dlsch.encode_to_d(tb_bits)
-        profiler.stop_meas("dlsim.tx_encode", t0, d_flats)
+        with annotate("oai4g:bitchain.encode"):
+            tb_bits = tb_bits.to(self.device)
+            d_flats = self.dlsch.encode_to_d(tb_bits)
+        if meas:
+            profiler.stop_meas("dlsim.tx_encode", t0, d_flats)
         rounds, w_soft, taps = [], None, None
         for rnd in range(self.cfg.n_harq_rounds):
             t0 = time.perf_counter()
             res, taps = self.round(rnd, tb_bits, d_flats, tap_normals[rnd],
                                    noise_normals[rnd], n0, W, ev, w_soft,
                                    taps)
-            profiler.stop_meas(f"dlsim.round{rnd}(chan+rx+decode)", t0,
-                               res.ok)
+            if meas:
+                profiler.stop_meas(f"dlsim.round{rnd}(chan+rx+decode)", t0,
+                                   res.ok)
             rounds.append(res)
             w_soft = res.w_soft
         # a trial reaches round r while no earlier round decoded it
-        ok_any = torch.cummax(torch.stack([r.ok for r in rounds]).to(
-            torch.int32), dim=0).values.bool()
-        fail = (~ok_any).sum(dim=1)
-        reach = torch.cat([fail.new_full((1,), tb_bits.shape[0]), fail[:-1]])
+        with annotate("oai4g:sim.harq"):
+            ok_any = torch.cummax(torch.stack([r.ok for r in rounds]).to(
+                torch.int32), dim=0).values.bool()
+            fail = (~ok_any).sum(dim=1)
+            reach = torch.cat([fail.new_full((1,), tb_bits.shape[0]),
+                               fail[:-1]])
         return TrialResult(rounds, fail, reach)
 
     def draw(self, generator: torch.Generator):
@@ -577,30 +598,35 @@ class DlsimFading:
               trace_dir: str | None = None):
         """SNR sweep; rows of (snr, errs [R], trials [R], bler [R]).
         profile=True prints the per-stage time_meas table at exit
-        (dlsim.c:3266+ parity); trace_dir records a trace of one
-        representative step (the VCD dumper's equivalent artifact)."""
-        if trace_dir is not None:
-            from ..utils.tracing import annotate, trace
-            snr = float(snrs[0])
-            n0 = np.float32(10.0 ** (-snr / 10.0))
-            W, ev = self.wiener(snr), self.err_var(snr)
-            draws = self.draw(torch.Generator(
-                device=self.device).manual_seed(seed))
-            self.trial(*draws, n0, W, ev)      # first calls outside the trace
-            with trace(trace_dir, self.device):
-                with annotate("dlsim.step"):
-                    self.trial(*draws, n0, W, ev)
-        rows = []
-        for s in snrs:
-            errs, reach = self.run_snr(float(s), n_frames, seed)
-            bler = errs / np.maximum(reach, 1)
-            rows.append((float(s), errs.copy(), reach.copy(), bler.copy()))
-            if verbose:
-                txt = " ".join(f"r{r}:{bler[r]:.3f}({errs[r]}/{reach[r]})"
-                               for r in range(len(bler)))
-                print(f"SNR {s:+6.2f} dB: {txt}", flush=True)
-            if early_exit and errs[-1] == 0:
-                break
-        if profile:
-            profiler.print_meas()
-        return rows
+        (dlsim.c:3266+ parity), its stages timed in every trial of the
+        sweep; trace_dir records a trace of one representative step (the
+        VCD dumper's equivalent artifact)."""
+        self._stage_meas = profile
+        try:
+            if trace_dir is not None:
+                from ..utils.tracing import trace
+                snr = float(snrs[0])
+                n0 = np.float32(10.0 ** (-snr / 10.0))
+                W, ev = self.wiener(snr), self.err_var(snr)
+                draws = self.draw(torch.Generator(
+                    device=self.device).manual_seed(seed))
+                self.trial(*draws, n0, W, ev)  # first calls outside the trace
+                with trace(trace_dir, self.device):
+                    with annotate("dlsim.step"):
+                        self.trial(*draws, n0, W, ev)
+            rows = []
+            for s in snrs:
+                errs, reach = self.run_snr(float(s), n_frames, seed)
+                bler = errs / np.maximum(reach, 1)
+                rows.append((float(s), errs.copy(), reach.copy(), bler.copy()))
+                if verbose:
+                    txt = " ".join(f"r{r}:{bler[r]:.3f}({errs[r]}/{reach[r]})"
+                                   for r in range(len(bler)))
+                    print(f"SNR {s:+6.2f} dB: {txt}", flush=True)
+                if early_exit and errs[-1] == 0:
+                    break
+            if profile:
+                profiler.print_meas()
+            return rows
+        finally:
+            self._stage_meas = False

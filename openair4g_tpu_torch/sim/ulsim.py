@@ -42,6 +42,7 @@ from ..phy.scfdma import (make_pusch_map, pusch_extract, pusch_fill_grid_x,
                           transform_deprecode)
 from ..phy.ulref import pusch_dmrs
 from ..tables.tbs import get_Qm_ul, get_TBS_UL
+from ..utils.tracing import annotate
 from .channels import ChannelModel, apply_channel_bins, apply_channel_time
 from .dlsim import _noise
 
@@ -248,19 +249,27 @@ class Ulsim:
         round's channel and noise normals. Returns (the unscrambled data
         LLRs [B, G], the UCI streams)."""
         B, dev = d_flats[0].shape[0], self.device
-        e = torch.bitwise_xor(self.codec.select_e(d_flats, rnd & 3),
-                              self._scr)
-        grid = pusch_fill_grid_x(self._tx_symbols(e, uci_bits), self.pm,
-                                 self.dmrs)
-        taps = self.chan.draw_taps(B, normals=tap_draw, device=dev)
-        rgrid, H, H2 = self._channel(grid, taps, _noise(noise_draw, n0, dev))
-        y, dmrs_rx = pusch_extract(rgrid, self.pm)
-        if self.cfg.perfect_ce:
-            H_data = self._genie(H, H2, y.shape)
-        else:
-            H_data = ul_estimate_channel(dmrs_rx, self.dmrs, self.pm, W)
-        xf, n0_eff = scfdma_mmse_equalize(y, H_data, n0)
-        return self._rx_llrs(transform_deprecode(xf), n0_eff)
+        with annotate("oai4g:bitchain.encode"):
+            e = self.codec.select_e(d_flats, rnd & 3)
+        with annotate("oai4g:tx.map"):
+            e = torch.bitwise_xor(e, self._scr)
+            grid = pusch_fill_grid_x(self._tx_symbols(e, uci_bits), self.pm,
+                                     self.dmrs)
+        with annotate("oai4g:frontend"):
+            with annotate("oai4g:frontend.channel"):
+                taps = self.chan.draw_taps(B, normals=tap_draw, device=dev)
+                rgrid, H, H2 = self._channel(grid, taps,
+                                             _noise(noise_draw, n0, dev))
+            with annotate("oai4g:frontend.estimate"):
+                y, dmrs_rx = pusch_extract(rgrid, self.pm)
+                if self.cfg.perfect_ce:
+                    H_data = self._genie(H, H2, y.shape)
+                else:
+                    H_data = ul_estimate_channel(dmrs_rx, self.dmrs, self.pm,
+                                                 W)
+            with annotate("oai4g:frontend.detect"):
+                xf, n0_eff = scfdma_mmse_equalize(y, H_data, n0)
+                return self._rx_llrs(transform_deprecode(xf), n0_eff)
 
     def trial(self, tb_bits, uci_bits, tap_normals, noise_normals, n0,
               W) -> UlTrialResult:
@@ -274,9 +283,10 @@ class Ulsim:
         dev = self.device
         B = tb_bits.shape[0]
         n0 = float(np.float32(n0))
-        tb_bits = tb_bits.to(dev)
         uci_bits = {k: v.to(dev) for k, v in (uci_bits or {}).items()}
-        d_flats = self.codec.encode_to_d(tb_bits)
+        with annotate("oai4g:bitchain.encode"):
+            tb_bits = tb_bits.to(dev)
+            d_flats = self.codec.encode_to_d(tb_bits)
         oks, w_soft = [], None
         uci_errs = None
         for rnd in range(self.cfg.n_harq_rounds):
@@ -284,14 +294,18 @@ class Ulsim:
                                            tap_normals[rnd],
                                            noise_normals[rnd], n0, W)
             if rnd == 0:
-                uci_errs = self._uci_errors(streams, uci_bits)
-            _, ok, w_soft = self.codec.decode(llr, w_soft=w_soft, rv=rnd & 3)
+                with annotate("oai4g:control.uci"):
+                    uci_errs = self._uci_errors(streams, uci_bits)
+            with annotate("oai4g:bitchain.decode"):
+                _, ok, w_soft = self.codec.decode(llr, w_soft=w_soft,
+                                                  rv=rnd & 3)
             oks.append(ok)
-        ok = torch.stack(oks)
-        # a trial reaches round r while no earlier round decoded it
-        ok_any = torch.cummax(ok.to(torch.int32), dim=0).values.bool()
-        fail = (~ok_any).sum(dim=1)
-        reach = torch.cat([fail.new_full((1,), B), fail[:-1]])
+        with annotate("oai4g:sim.harq"):
+            ok = torch.stack(oks)
+            # a trial reaches round r while no earlier round decoded it
+            ok_any = torch.cummax(ok.to(torch.int32), dim=0).values.bool()
+            fail = (~ok_any).sum(dim=1)
+            reach = torch.cat([fail.new_full((1,), B), fail[:-1]])
         return UlTrialResult(ok, fail, reach, uci_errs)
 
     def draw(self, generator: torch.Generator):

@@ -10,6 +10,17 @@ and fill with its device time. Sims take a `trace_dir` option and wrap
 one representative step in `trace()`; `annotate()` marks pipeline stages
 so they show as named spans.
 
+The program marks its own layers with `annotate`: spans named
+"oai4g:<layer>.<stage>" (bitchain.encode with encode.crc_seg,
+encode.turbo and encode.rate_match inside; tx.map; frontend with
+frontend.channel, frontend.estimate and frontend.detect; control.dci;
+control.uci; bitchain.decode with decode.dematch, decode.turbo and
+decode.crc; sim.harq). They are record_function events on the
+profiler's own clock, so a trace ties each CUDA runtime call, and
+through its correlation id each kernel, copy and fill it launched, to the
+layer that made it. With no profiler session active a span is one flag
+test: no event, no sync, no allocation.
+
 The cheap always-on layer is utils/profiler.py (time_meas-style stage
 stats printed at sim exit like dlsim.c:3266+); this module is the opt-in
 deep view.
@@ -23,6 +34,9 @@ import os
 import torch
 
 _count = itertools.count()
+# What `annotate` returns while nothing is tracing: one shared context
+# that does nothing on entry and exit.
+_NOOP = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -61,7 +75,11 @@ def trace(outdir: str, device=None):
 
 def annotate(name: str):
     """Named span on the trace timeline (record_function), usable as a
-    context manager — the VCD 'signal' equivalent."""
+    context manager — the VCD 'signal' equivalent. While no torch.profiler
+    session is active (tested at each call) it returns the shared no-op
+    context and makes no record_function call."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NOOP
     return torch.profiler.record_function(name)
 
 
