@@ -129,9 +129,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      counts its launches by shape too), against its plain version on
      random inputs of that shape: mrc_llr at Qm 6, the TDD frame's PCFICH,
      PDCCH and PDSCH, and v2 at the shape of each decode key (the flagship
-     load's 1,408 x 5,760, UlGrantSim's and TddFrameSim's codecs); only the
-     decode kernel (held in phase 48), mrc_llr and the Viterbi (held in
-     phase 47) may launch;
+     load's 1,408 x 5,760, UlGrantSim's and TddFrameSim's codecs), and the
+     bit chain's encode and select at each key (as in phase 49); only the
+     decode kernel (held in phase 48), mrc_llr, the bit chain and the
+     Viterbi (held in phase 47) may launch;
  34. the system emulator at small size (6 PRB), card against CPU on the
      same draws (the CPU sim's, kept by TTI): Oaisim in the abstraction
      mode with EESM, PF and 4 HARQ rounds, with MIESM, TDD, UL traffic
@@ -274,6 +275,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      then, by torch.profiler, the flagship group's decode at fixed
      iterations (on its inputs, and on noise, where every row runs them
      all) against the host loop's 2 n_iter v2 launches at its shape;
+ 49. the transmit bit chain (csrc/dlsch_encode.cu, run before 42): at every
+     launch key the paths of phases 4-48 launched (the ranks' of phase 44
+     added), the encode's (B, TBS, the code blocks' E sizes) and the
+     select's (the same and the rv), through a DlschCodec of that TBS and
+     those E sizes on TB bits drawn on the card: the kernels' d (tb_crc_
+     kernel and dlsch_encode_kernel) and e (dlsch_select_kernel)
+     torch.equal to the codec's plain path (encode_to_d_ref, select_e_ref)
+     on the card, one launch a call (phases 33, 41 and 44-46 hold the keys
+     they launched there); each phase that encoded a TB must have selected
+     at the same (B, TBS, E sizes); each key's time by CUDA events beside
+     the plain path's, its device time (phase 16; the encode's two kernels
+     summed) and the bound from the bytes (TB bits in and d out, d in and
+     e out, int32);
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
@@ -281,7 +295,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      turbo_decode_kernel device events (this holds a profiler
      session, so it runs after every other path);
  16. (run last) the device time of every kernel at each shape phases 3,
-     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44-48 timed, by torch.profiler's
+     6, 7, 11, 17, 23, 28, 33, 35, 41 and 44-49 timed, by torch.profiler's
      device-side events (the kernel alone, without the host's enqueue
      time that CUDA events around back-to-back calls of a few-µs kernel
      measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
@@ -316,8 +330,9 @@ deadlines and the flagship step with the profiler on and off, the bench
 cell's decodes); the Viterbi's [R, 3, K] entry at each (R, K) and its
 search entry at each (B, W, K, number of candidates), with their launches
 by phase, the latency floor and one row's time, and at phase 5's shape
-the search's launches a flagship step and the A/B of phase 47), the
-total seconds,
+the search's launches a flagship step and the A/B of phase 47); the bit
+chain's encode and select at every key the paths launched, with their
+launches by phase and those a flagship step; the total seconds,
 then the device JSON line. It needs a CUDA device and imports
 nothing of JAX.
 """
@@ -327,12 +342,14 @@ import importlib.util
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -448,38 +465,52 @@ TURBO_V1_SCRATCH_MAX = 45e6
 # The Viterbi kernel's two entries: [R, 3, K] (the PBCH, the CQI) and the
 # DCI blind search.
 VITERBI_NAMES = ("viterbi", "viterbi_search")
+# The transmit bit chain (csrc/dlsch_encode.cu): the encode, one launch of
+# tb_crc_kernel and dlsch_encode_kernel a TB batch, key (B, TBS, Es), the
+# code blocks' E sizes; the select, one launch of dlsch_select_kernel a
+# redundancy version, key (B, TBS, Es, rv). Held where they launch
+# (_hold_dlsch) and at every key in phase 49.
+DLSCH_NAMES = ("dlsch_encode", "dlsch_select")
+DLSCH_KERNELS = {"dlsch_encode": ("tb_crc_kernel", "dlsch_encode_kernel"),
+                 "dlsch_select": ("dlsch_select_kernel",)}
 # The turbo decode: every decoding path launches turbo_decode_kernel once a
 # (K, F) group, key (B, K, F, W, U, n_iter, CRC, dynamic_stop); the v2
 # kernel's body runs inside it, and the v2 kernel itself launches only for
 # direct callers (phase 46's turbo roofline) and the decode's plain loop.
 DECODE = "turbo_decode"
 DECODE_KERNEL = "turbo_decode_kernel<"
-# The launches of both on the paths, {phase: {(name, launch key):
-# launches}}. Every DCI, PBCH, CQI and turbo decode goes through one of
-# them and the phases reset the counters many times, so their launches are
-# gathered whenever they are reset (reset_counts) and at each phase's start
-# and end; phase 47 holds the Viterbi's entries at every shape gathered,
-# phase 48 the decode at every key.
+# The launches of the Viterbi, the decode and the bit chain on the paths,
+# {phase: {(name, launch key): launches}}. Every DCI, PBCH, CQI, turbo
+# decode and TB encode goes through one of them and the phases reset the
+# counters many times, so their launches are gathered whenever they are
+# reset (reset_counts) and at each phase's start and end; phase 47 holds
+# the Viterbi's entries at every shape gathered, phase 48 the decode at
+# every key, phase 49 the bit chain at every key. Their rows of the
+# kernels line are made there, with these launches.
 VITERBI_LAUNCHES: dict = {}
 DECODE_LAUNCHES: dict = {}
+DLSCH_LAUNCHES: dict = {}
 _GATHERED = {"phase": None, "seen": {}}
+OWN_ROWS = (*VITERBI_NAMES, DECODE, *DLSCH_NAMES)
+_GATHER_INTO = {DECODE: DECODE_LAUNCHES,
+                **{name: DLSCH_LAUNCHES for name in DLSCH_NAMES}}
 
 
 def _gathered_now() -> dict:
     return {(name, key): n for (name, key), n in launch_shapes().items()
-            if name in VITERBI_NAMES or name == DECODE}
+            if name in OWN_ROWS}
 
 
 def _gather_paths() -> None:
-    """Add the Viterbi's and the decode's launches since the last gathering
-    to the current phase's."""
+    """Add the launches of OWN_ROWS' kernels since the last gathering to
+    the current phase's."""
     now = _gathered_now()
     VITERBI_LAUNCHES.setdefault(_GATHERED["phase"], {})
     for key, n in now.items():
         new = n - _GATHERED["seen"].get(key, 0)
         if new:
-            into = (DECODE_LAUNCHES if key[0] == DECODE
-                    else VITERBI_LAUNCHES).setdefault(_GATHERED["phase"], {})
+            into = _GATHER_INTO.get(key[0], VITERBI_LAUNCHES).setdefault(
+                _GATHERED["phase"], {})
             into[key] = into.get(key, 0) + new
     _GATHERED["seen"] = now
 
@@ -532,7 +563,10 @@ def _profiled(items: list, n: int) -> list:
     of two profiler cycles (the first, the same calls, lets the device
     tracing start: a session that records from its first call can miss the
     launches made while it starts). A kernel name is matched with the
-    spaces taken out, and no two items of one session may share one."""
+    spaces taken out, and no two items of one session may share one. An
+    item's kernel may be a tuple of the names of the kernels one call of
+    fn launches once each: its launches are the fewest seen of any, its
+    time their sum."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
@@ -545,9 +579,16 @@ def _profiled(items: list, n: int) -> list:
             prof.step()
     events = [(e.key.replace(" ", ""), e.count, e.self_device_time_total)
               for e in prof.key_averages() if e.self_device_time_total > 0]
-    return [(sum(c for key, c, _ in events if kernel in key),
-             sum(us for key, _, us in events if kernel in key))
+    return [(min(sum(c for key, c, _ in events if k in key)
+                 for k in _names(kernel)),
+             sum(us for key, _, us in events
+                 if any(k in key for k in _names(kernel))))
             for _, kernel in items]
+
+
+def _names(kernel) -> tuple:
+    """The kernel names of a _profiled item's kernel: a name or a tuple."""
+    return (kernel,) if isinstance(kernel, str) else kernel
 
 
 def _device_ms(items: list, n: int) -> list:
@@ -568,7 +609,8 @@ def _device_ms(items: list, n: int) -> list:
         sessions = []            # indices, no kernel name twice in one
         for k in todo:
             for session in sessions:
-                if all(items[j][1] != items[k][1] for j in session):
+                if all(not set(_names(items[j][1])) & set(
+                        _names(items[k][1])) for j in session):
                     session.append(k)
                     break
             else:
@@ -1697,10 +1739,12 @@ def _equal(name: str, cpu, gpu) -> None:
 
 def _no_kernel(what: str) -> None:
     """The control and sync paths run no hand-written kernel but the
-    Viterbi's two entries (phase 47 checks which phases launch them): their
-    LLRs go through the plain demap, as the reference's do."""
+    Viterbi's two entries (phase 47 checks which phases launch them) and,
+    where they send a transport block (MBMS), the bit chain's: their LLRs
+    go through the plain demap, as the reference's do."""
     counts = launch_counts()
-    if any(n for name, n in counts.items() if name not in VITERBI_NAMES):
+    if any(n for name, n in counts.items()
+           if name not in VITERBI_NAMES + DLSCH_NAMES):
         raise AssertionError(f"{what}: launches {counts}")
 
 
@@ -2406,14 +2450,18 @@ def check_kernels_launched(dev, gen, timings, launched: dict, held: list,
     29-31 launched and phase 28 did not hold, against its plain version on
     random inputs of that shape: mrc_llr within rtol = atol = 3e-4, v2 bit
     for bit at the shape of each decode key (the decode kernel itself is
-    held in phase 48); each labelled with where[(kernel, shape)], the run
-    it was counted a step of. Only the decode kernel, mrc_llr and the
-    Viterbi (held in phase 47) may launch there. Returns [(kernel, launch
-    key, row)] as check_kernels_per_tti does."""
+    held in phase 48), the bit chain bit for bit (_hold_dlsch, its rows
+    kept for phase 49); each labelled with where[(kernel, shape)], the run
+    it was counted a step of. Only the decode kernel, mrc_llr, the bit
+    chain and the Viterbi (held in phase 47) may launch there. Returns
+    [(kernel, launch key, row)] as check_kernels_per_tti does."""
     done = {(name, key) for name, key, _ in held}
     out = []
     for name, key in sorted(launched, key=str):
         if name in VITERBI_NAMES:
+            continue
+        if name in DLSCH_NAMES:
+            _hold_dlsch(name, key, dev, gen, timings)
             continue
         label = where.get((name, key), "phases 29-31")
         if name == DECODE:
@@ -2429,8 +2477,8 @@ def check_kernels_launched(dev, gen, timings, launched: dict, held: list,
                             gen, timings)
         else:
             raise AssertionError(f"{name} {key} launched on the per-TTI "
-                                 "paths: only the decode kernel, mrc_llr and "
-                                 "the Viterbi may be")
+                                 "paths: only the decode kernel, mrc_llr, "
+                                 "the bit chain and the Viterbi may be")
         done.add((name, key))
         out.append((name, key, row))
     return out
@@ -2849,8 +2897,8 @@ def oaisim_full_phy(dev) -> tuple:
     if len(per_tti) != 40 or min(per_tti) == 0:
         raise AssertionError(f"oaisim full PHY: decode launches a TTI "
                              f"{per_tti}")
-    if {name for name, _ in shapes} != {DECODE} or {
-            _v2_shape(key) for _, key in shapes} != {
+    if {name for name, _ in shapes} != {DECODE, *DLSCH_NAMES} or {
+            _v2_shape(key) for name, key in shapes if name == DECODE} != {
                 (OAISIM_ROWS, OAISIM_N, TURBO_W, TURBO_U)}:
         raise AssertionError(f"oaisim full PHY launched {shapes}")
     one = Oaisim(OaisimConfig(**dict(OAISIM_FULL, n_enb=1,
@@ -3112,13 +3160,15 @@ def _capstone_run(cfg: dict, dev, art: str | None = None):
 def _only_decode(shapes: dict, what: str) -> None:
     """The capstones' PHY launches the decode kernel and the Viterbi (the
     search entry for its DCI searches, the [R, 3, K] entry for its PBCH
-    decodes) and nothing else: the plain demap, as the reference's, and no
-    v2 outside the decode kernel."""
+    decodes) and, for its transport blocks, the bit chain's, and nothing
+    else: the plain demap, as the reference's, and no v2 outside the decode
+    kernel."""
     names = {k[0] for k in shapes}
     if not {DECODE, "viterbi_search"} <= names \
-            or not names <= {DECODE, *VITERBI_NAMES}:
+            or not names <= {DECODE, *VITERBI_NAMES, *DLSCH_NAMES}:
         raise AssertionError(f"{what}: launches {shapes}; the decode kernel "
-                             "and the Viterbi must launch and nothing else")
+                             "and the Viterbi must launch and nothing but "
+                             "they and the bit chain")
 
 
 def check_small_capstone(dev) -> dict:
@@ -3334,14 +3384,18 @@ def multiue_full_width(dev) -> tuple:
     return total, pf
 
 
-def check_kernels_capstone(dev, gen, launched: dict) -> list:
+def check_kernels_capstone(dev, gen, timings, launched: dict) -> list:
     """v2 at the shape of every decode key that phases 39-41 launched
     against its plain version on random inputs of that shape, bit for bit
     (batch-1 rows of one code block: the common, dedicated, Msg3 and UL
     grants, and the MCS that PF's CQIs picked; the decode kernel itself is
-    held in phase 48). Returns [(kernel, launch key, row)]."""
+    held in phase 48), and the bit chain at each key (_hold_dlsch).
+    Returns [(kernel, launch key, row)]."""
     out, done = [], set()
     for name, key in sorted(launched, key=str):
+        if name in DLSCH_NAMES:
+            _hold_dlsch(name, key, dev, gen, timings)
+            continue
         if name in VITERBI_NAMES or _v2_shape(key) in done:
             continue                  # the Viterbi's held in phase 47
         shape, row = _hold_v2_of("capstone", key, dev, gen)
@@ -3780,15 +3834,21 @@ def _hold_each(launched: dict, held_keys: set, label: str, dev, gen,
     within rtol = atol = 3e-4), labelled with label and its launches; a
     decode key holds the decode kernel against the host loop
     (_hold_turbo_decode, its row kept for the kernels line) and v2 at its
-    shape; the Viterbi's are held in phase 47. v2 at a shape that a direct
-    caller launched is held and timed here whether or not a phase held it
-    before. Returns [(kernel, key, row)] of the rows for the kernels line:
-    the decode kernel's are kept apart, and v2 has rows only at the shapes
-    of direct launches."""
+    shape; a bit chain key holds its kernel against the codec's plain path
+    (_hold_dlsch, its row kept for phase 49); the Viterbi's are held in
+    phase 47. v2 at a shape that a direct caller launched is held and
+    timed here whether or not a phase held it before. Returns [(kernel,
+    key, row)] of the rows for the kernels line: the decode kernel's and
+    the bit chain's are kept apart, and v2 has rows only at the shapes of
+    direct launches."""
     out = []
     for name, key in sorted(launched, key=str):
         if name in VITERBI_NAMES or ((name, key) in held_keys
                                      and name != "turbo_half_iter"):
+            continue
+        if name in DLSCH_NAMES:
+            _hold_dlsch(name, key, dev, gen, timings)
+            held_keys.add((name, key))
             continue
         what = f"{label} x{launched[name, key]}"
         if name == DECODE:
@@ -3855,12 +3915,17 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
     if iters["fixed_8iter"] != {"mean": 8.0, "max": 8} or not \
             0 < iters["earlystop_operating"]["mean"] < 8:
         raise AssertionError(f"turbo cell iterations run {iters}")
-    if {name for name, _ in launched["turbo"]} != {DECODE} or \
-            {_v2_shape(key) for _, key in launched["turbo"]} != {BENCH_TURBO}:
-        raise AssertionError(f"turbo cell launched {launched['turbo']}")
+    # the transmitting cells (the turbo cell's inputs are encoded on the
+    # card) launch the bit chain
     kernels_of = {c: {name for name, _ in s} for c, s in launched.items()}
-    if kernels_of["flagship"] != {DECODE, "mrc_llr", "viterbi_search"} or \
-            kernels_of["awgn"] != {DECODE} or kernels_of["front_end"]:
+    if kernels_of["turbo"] != {DECODE, *DLSCH_NAMES} or {
+            _v2_shape(key) for name, key in launched["turbo"]
+            if name == DECODE} != {BENCH_TURBO}:
+        raise AssertionError(f"turbo cell launched {launched['turbo']}")
+    if kernels_of["flagship"] != {DECODE, "mrc_llr", "viterbi_search",
+                                  *DLSCH_NAMES} or \
+            kernels_of["awgn"] != {DECODE, *DLSCH_NAMES} or \
+            kernels_of["front_end"]:
         raise AssertionError(f"the cells launched {kernels_of}")
     for name, value in (("flagship", cells["flagship"]["value"]),
                         ("awgn", cells["awgn"]["value"]),
@@ -4689,6 +4754,139 @@ def _by_phase_totals(launched: dict) -> dict:
     return dict(sorted(out.items(), key=lambda x: str(x[0])))
 
 
+@dataclass(frozen=True)
+class _BitChain:
+    """The fields of a configuration that DlschCodec reads, from a bit
+    chain launch key's TBS and E sizes: G their sum and Qm their greatest
+    common divisor, from which block_e_sizes gives the sizes back."""
+    tbs: int
+    Es: tuple
+    rv: int = 0
+    n_turbo_iter: int = 8
+    decoder_window: int | None = None
+    decoder_warmup: int = 24
+
+    @property
+    def G(self) -> int:
+        return sum(self.Es)
+
+    @property
+    def Qm(self) -> int:
+        return math.gcd(*self.Es)
+
+
+# The bit chain's rows, {(kernel, launch key): row}, each key held once
+# (_hold_dlsch), and the inputs their timed calls read, {(B, TBS, Es):
+# (codec, TB bits, d)}.
+DLSCH_ROWS: dict = {}
+_DLSCH_INPUTS: dict = {}
+
+
+def _dlsch_calls(name: str, key: tuple, dev, gen) -> tuple:
+    """(kernel, plain, bytes, codec) at a bit chain launch key: the
+    codec's call of the kernel and of its plain path (encode_to_d and
+    encode_to_d_ref on TB bits, or select_e and select_e_ref at the key's
+    rv on their d) on random TB bits drawn on the card once a (B, TBS,
+    Es), and the bytes the kernel must move: the TB bits in and d out
+    (encode), d in and e out (select), int32 each."""
+    B, tbs, Es = key[:3]
+    if key[:3] not in _DLSCH_INPUTS:
+        codec = DlschCodec(_BitChain(tbs, Es))
+        if tuple(codec.Es) != Es:
+            raise AssertionError(f"{name} {key}: the codec's E sizes are "
+                                 f"{codec.Es}")
+        tb = torch.randint(0, 2, (B, tbs), generator=gen, device=dev,
+                           dtype=torch.int32)
+        _DLSCH_INPUTS[key[:3]] = (codec, tb, codec.encode_to_d(tb))
+    codec, tb, d = _DLSCH_INPUTS[key[:3]]
+    p = codec.kernel_plan()
+    if name == "dlsch_encode":
+        return (functools.partial(codec.encode_to_d, tb),
+                functools.partial(codec.encode_to_d_ref, tb),
+                4 * B * (tbs + p.dtot), codec)
+    return (functools.partial(codec.select_e, d, key[3]),
+            functools.partial(codec.select_e_ref, d, key[3]),
+            4 * B * (p.dtot + p.G), codec)
+
+
+def _hold_dlsch(name: str, key: tuple, dev, gen, timings: list) -> dict:
+    """The bit chain's kernel at a launch key, encode (B, TBS, Es) or
+    select (B, TBS, Es, rv), through a DlschCodec of that TBS and those E
+    sizes (_dlsch_calls): d (every block's streams) or e torch.equal to
+    the codec's plain path on the card, one launch a call; the time of
+    each by CUDA events over back-to-back calls, the bound from the bytes,
+    and the kernels' device time queued for phase 16 (the encode's two
+    kernels summed). The launches are not a path's. Returns the row, kept
+    in DLSCH_ROWS."""
+    if (name, key) in DLSCH_ROWS:
+        return DLSCH_ROWS[name, key]
+    with _not_a_path():
+        kernel, plain, n_bytes, codec = _dlsch_calls(name, key, dev, gen)
+        n = launch_counts()[name]
+        got, want = kernel(), plain()
+        if launch_counts()[name] != n + 1:
+            raise AssertionError(f"{name} {key}: not one launch a call")
+        if name == "dlsch_encode":
+            got, want = torch.cat(got, 1), torch.cat(want, 1)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name} {key}: {int((got != want).sum())} of {got.numel()} "
+                "bits differ from the codec's plain path")
+        ms = _time_ms(kernel, 10)
+        plain_ms = _time_ms(plain, 3)
+    bound = _bound(n_bytes, 0)
+    B, tbs, Es = key[:3]
+    Ks = codec.block_Ks
+    shape = (f"B {B}, TBS {tbs:,}, {len(Ks)} blocks of K "
+             f"{'/'.join(f'{K:,}' for K in sorted(set(Ks)))}, F "
+             f"{codec.seg.F}, E {'/'.join(f'{E:,}' for E in sorted(set(Es)))}"
+             + (f", rv {key[3]}" if name == "dlsch_select" else ""))
+    print(f"{name} {shape}: equal to the plain path bit for bit; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.5f} ms", flush=True)
+    row = {"shape": shape, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, **bound}
+    timings.append((f"{name} {shape}", kernel, DLSCH_KERNELS[name], row))
+    DLSCH_ROWS[name, key] = row
+    return row
+
+
+def dlsch_on_card(dev, gen, timings, ranks_launched: dict) -> dict:
+    """Phase 49: the bit chain's kernels at every key that phases 4-48
+    launched (the ranks' of phase 44 added), each held against the codec's
+    plain path (_hold_dlsch; phases 33, 41 and 44-46 held theirs where
+    they launched), each key's device time queued for phase 16. Every
+    phase that encoded a TB launched a select of the same (B, TBS, Es).
+    Returns {"launched": {(kernel, key): {phase: launches}}}."""
+    _gather_paths()
+    launched = {}
+    for phase, c in sorted(DLSCH_LAUNCHES.items(), key=lambda x: str(x[0])):
+        if phase == 49:
+            continue
+        for name_key, n in c.items():
+            launched.setdefault(name_key, {})[phase] = n
+    for (name, key), n in ranks_launched.items():
+        if name in DLSCH_NAMES:
+            by_phase = launched.setdefault((name, key), {})
+            by_phase[44] = by_phase.get(44, 0) + n
+    for name in DLSCH_NAMES:
+        print(f"49 {name}: {sum(k[0] == name for k in launched)} keys; "
+              "launches by phase " + str(_by_phase_totals(
+                  {k: v for k, v in launched.items() if k[0] == name})),
+              flush=True)
+    encoded, selected = ({(k[1][:3], p) for k, by_phase in launched.items()
+                          if k[0] == name for p in by_phase}
+                         for name in DLSCH_NAMES)
+    if not launched or encoded != selected:
+        raise AssertionError(f"49: (B, TBS, Es, phase) encoded but not "
+                             f"selected {sorted(encoded - selected, key=str)}"
+                             f", selected but not encoded "
+                             f"{sorted(selected - encoded, key=str)}")
+    for name, key in sorted(launched, key=str):
+        _hold_dlsch(name, key, dev, gen, timings)
+    return {"launched": launched}
+
+
 def _phase(n: int, title: str, fn, *args):
     """Run one phase, with its number, title and seconds printed."""
     print(f"== phase {n}: {title}", flush=True)
@@ -4806,7 +5004,7 @@ def main() -> None:
     cap[41], pf_sim = _phase(41, "multi-UE capstones and handover full width",
                              multiue_full_width, dev)
     held_cap = _phase(41, "v2 at every shape the capstones launched",
-                      check_kernels_capstone, dev, gen,
+                      check_kernels_capstone, dev, gen, timings,
                       _sum_shapes(*cap.values()))
     modem = _phase(43, "the runtime at 20 MHz", runtime_20mhz, dev)
     # every (kernel, shape) a row of the kernels line holds so far
@@ -4823,6 +5021,8 @@ def main() -> None:
                  full_sim, cap_sim, pf_sim)
     dec = _phase(48, "the decode kernel at every key the paths launched",
                  turbo_decode_on_card, dev, gen, timings, par["launched"])
+    dls = _phase(49, "the bit chain at every key the paths launched",
+                 dlsch_on_card, dev, gen, timings, par["launched"])
     obs = _phase(42, "observability on the flagship", observability_flagship,
                  dev)
     cap_steps = capstone_tti_steps(cap_sim, pf_sim)
@@ -4914,7 +5114,7 @@ def main() -> None:
                     share=row["bound_ms"] / row["device_ms"]))
             row_of[name, key] = rows[-1]
         for key, n in res["launched"].items():
-            if key[0] in VITERBI_NAMES or key[0] == DECODE:
+            if key[0] in OWN_ROWS:
                 continue
             row = row_of[key]
             row["launches"] += n
@@ -5019,6 +5219,24 @@ def main() -> None:
             source="openair4g_tpu_torch/csrc/viterbi.cu",
             replaces="openair4g_tpu/ops/convcode.py:110 and the candidate "
                      "loop of openair4g_tpu/phy/pdcch.py:211",
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
+            **extra, **row, share=row["bound_ms"] / row["device_ms"]))
+    # The bit chain's rows, one a (kernel, key) the paths launched (phase
+    # 49 holds each), with the launches by phase and, at phase 5's keys,
+    # those a flagship step.
+    replaces = {"dlsch_encode": "openair4g_tpu/phy/pdsch.py:89 (the CRCs, "
+                "segmentation and turbo encoder of DlschCodec.encode_to_d)",
+                "dlsch_select": "openair4g_tpu/phy/pdsch.py:120 (the rate "
+                "matching of DlschCodec.select_e)"}
+    for (name, key), by_phase in sorted(dls["launched"].items(), key=str):
+        row = DLSCH_ROWS[name, key]
+        extra = {}
+        if 5 in by_phase:
+            extra["launches_per_flagship_step"] = by_phase[5] / flagship_steps
+        rows.append(dict(
+            name=name, route="cuda",
+            source="openair4g_tpu_torch/csrc/dlsch_encode.cu",
+            replaces=replaces[name], key=list(key),
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
     for row in rows:        # no one PyTorch call computes any of these

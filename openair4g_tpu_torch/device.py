@@ -24,7 +24,8 @@ HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12 / 2
 # launches its kernel, and nowhere else; the same launches by (kernel,
 # shape), the shape as the wrapper describes it.
 _LAUNCHES = {"turbo_half_iter": 0, "turbo_half_iter_v1": 0, "turbo_decode": 0,
-             "mrc_llr": 0, "demap_llr": 0, "viterbi": 0, "viterbi_search": 0}
+             "mrc_llr": 0, "demap_llr": 0, "viterbi": 0, "viterbi_search": 0,
+             "dlsch_encode": 0, "dlsch_select": 0}
 _SHAPES: dict = {}
 
 

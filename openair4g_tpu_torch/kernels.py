@@ -20,7 +20,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("turbo_half_iter.cu", "mrc_llr.cu", "viterbi.cu")
+SOURCES = ("turbo_half_iter.cu", "mrc_llr.cu", "viterbi.cu",
+           "dlsch_encode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,6 +59,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.viterbi_launch.restype = i
     lib.viterbi_search_launch.argtypes = [p, ll, i, p] + [i] * 5 + [p] * 3
     lib.viterbi_search_launch.restype = i
+    lib.dlsch_encode_launch.argtypes = [p, i, p, p, i, p, i, i, p, p, i, i,
+                                        p]
+    lib.dlsch_encode_launch.restype = i
+    lib.dlsch_select_launch.argtypes = [p, i, p, i, p, i, i, p]
+    lib.dlsch_select_launch.restype = i
     lib.empty_launch.argtypes = [p]
     lib.empty_launch.restype = i
 

@@ -9,7 +9,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops import turbo
+from ..ops import dlsch_cuda, turbo
 from ..ops.crc import crc_device, crc_matrix, crc_remainder
 from ..ops.rate_match import (RateMatchMaps, block_e_sizes, compute_ncb,
                               make_rate_match_maps, rate_match_rx,
@@ -74,7 +74,18 @@ class DlschCodec:
 
     # ------------------------------------------------------------------ TX --
     def encode_to_d(self, tb_bits):
-        """tb_bits [B, TBS] -> list of per-block d_flat [B, 3*(K+4)]."""
+        """tb_bits [B, TBS] -> list of per-block d_flat [B, 3*(K+4)]. A CUDA
+        tensor takes two kernel launches (ops/dlsch_cuda.encode), the blocks'
+        streams views of one buffer; a CPU tensor encode_to_d_ref."""
+        if tb_bits.device.type == "cpu":
+            return self.encode_to_d_ref(tb_bits)
+        p = self.kernel_plan()
+        return dlsch_cuda.views(dlsch_cuda.encode(tb_bits, p), p)
+
+    def encode_to_d_ref(self, tb_bits):
+        """The plain version of encode_to_d, on any device: CRC24A,
+        segmentation and each block's CRC24B as GF(2) products, the turbo
+        encoder's cumsum scans (ops/turbo.turbo_encode_device)."""
         seg = self.seg
         B = tb_bits.shape[0]
         with annotate("oai4g:encode.crc_seg"):
@@ -97,11 +108,24 @@ class DlschCodec:
             return [d.reshape(B, -1) for d in self._encode_blocks(blocks)]
 
     def select_e(self, d_flats, rv: int | None = None):
-        """Rate-match the encoded streams for one redundancy version."""
-        maps = self.maps_by_rv[self.cfg.rv if rv is None else rv]
+        """Rate-match the encoded streams for one redundancy version: one
+        kernel launch for CUDA streams, which must be encode_to_d's views
+        (ops/dlsch_cuda.select), select_e_ref for CPU ones."""
+        rv = self.cfg.rv if rv is None else rv
         with annotate("oai4g:encode.rate_match"):
-            return torch.cat([rate_match_tx(d, maps[r])
-                              for r, d in enumerate(d_flats)], dim=1)
+            if d_flats[0].device.type == "cpu":
+                return self.select_e_ref(d_flats, rv)
+            return dlsch_cuda.select(d_flats, self.kernel_plan(), rv)
+
+    def select_e_ref(self, d_flats, rv: int):
+        """The plain version of select_e, on any device: a gather a block."""
+        maps = self.maps_by_rv[rv]
+        return torch.cat([rate_match_tx(d, maps[r])
+                          for r, d in enumerate(d_flats)], dim=1)
+
+    def kernel_plan(self) -> dlsch_cuda.EncodePlan:
+        """The plan the card's encode and select kernels read."""
+        return dlsch_cuda.plan(self.cfg.tbs, tuple(self.Es))
 
     def encode(self, tb_bits, rv: int | None = None):
         """tb_bits [B, TBS] int {0,1} -> e [B, G] int32."""

@@ -21,8 +21,13 @@ from openair4g_tpu_torch.ops.turbo_cuda import (BIG, half_iteration,
                                                 half_iteration_prepped_ref,
                                                 half_iteration_ref,
                                                 pick_unroll, prep_parity)
+from openair4g_tpu_torch.ops.uci import UciConfig
+from openair4g_tpu_torch.phy.pdsch import DlschCodec, DlschConfig
+from openair4g_tpu_torch.phy.pusch import UlschConfig
 from openair4g_tpu_torch.sim.dlsim import DlsimFading, DlsimFadingConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
+from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
+from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -288,3 +293,75 @@ def test_tm3_step_on_card_goes_through_demap_kernel(cuda):
     # two layers and the PDCCH
     assert after["demap_llr"] == before["demap_llr"] + 3, (before, after)
     assert after["turbo_decode"] > before["turbo_decode"]
+
+
+# ------------------------------------------------- the DLSCH bit chain --
+
+def _dlsch_equal(codec, B, cuda, seed):
+    """The encode and select kernels' d and e (every rv) against the plain
+    path on the CPU, bit for bit."""
+    gen = torch.Generator().manual_seed(seed)
+    tb = torch.randint(0, 2, (B, codec.cfg.tbs), generator=gen,
+                       dtype=torch.int32)
+    want = codec.encode_to_d(tb)
+    got = codec.encode_to_d(tb.to(cuda))
+    assert torch.equal(torch.cat(got, 1).cpu(), torch.cat(want, 1)), \
+        (codec.cfg, B)
+    for rv in range(4):
+        assert torch.equal(codec.select_e(got, rv).cpu(),
+                           codec.select_e(want, rv)), (codec.cfg, B, rv)
+
+
+@pytest.mark.parametrize("n_rb", [6, 15, 25, 50, 75, 100])
+def test_dlsch_kernels_match_plain_path_at_every_table_tbs(cuda, n_rb):
+    """Every DL MCS at 1 and 2 ports and CFI 1-3, and every UL MCS, over
+    the band: the codecs of DlsimFading, DlsimAwgn, dlsim_mimo,
+    FullChainSim, tddsim, oaisim, the capstones and sched/ue_tx (K = 40 to
+    6,144, C = 1 to 13) at each bandwidth."""
+    codecs = [DlschCodec(DlschConfig(mcs=m, n_rb=n_rb, nports=p,
+                                     n_pdcch_symbols=cfi))
+              for m in range(29) for p in (1, 2) for cfi in (1, 2, 3)]
+    codecs += [DlschCodec(UlschConfig(mcs=m, n_rb_alloc=n_rb))
+               for m in range(29)]
+    for i, codec in enumerate(codecs):
+        _dlsch_equal(codec, 3, cuda, seed=1000 * n_rb + i)
+
+
+@pytest.mark.parametrize("B", [1, 128, 512])
+def test_dlsch_kernels_match_plain_path_at_the_benchmark_batches(cuda, B):
+    """The flagship's codec, the uplink's with its UCI (g_override) and the
+    MBSFN region's (g_override) at batch 1, 128 and 512."""
+    ul = Ulsim(UlsimConfig(mcs=20, n_rb=100, n_rb_alloc=100, batch=B,
+                           uci=UciConfig(o_cqi=30, o_ri=1, o_ack=2)),
+               device=cuda).codec
+    mbms = Mbmssim(MbmssimConfig(mcs=16, n_rb=100, batch=B),
+                   device=cuda).codec
+    flagship = DlschCodec(DlschConfig(mcs=26, n_rb=100))
+    for i, codec in enumerate((flagship, ul, mbms)):
+        _dlsch_equal(codec, B, cuda, seed=B + i)
+
+
+def test_dlsch_kernels_launch_once_a_trial_and_once_a_round(cuda):
+    """One encode a trial and one select a round, in the DL and the UL;
+    streams that are not views of one encode's buffer are refused."""
+    dl = DlsimFading(DlsimFadingConfig(mcs=26, n_rb=25, channel="EVA",
+                                       n_harq_rounds=2, batch=8,
+                                       n_turbo_iter=4), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = launch_counts()
+    dl.step(gen, 10.0 ** -3.0, dl.wiener(30.0), dl.err_var(30.0))
+    after = launch_counts()
+    assert (after["dlsch_encode"] - before["dlsch_encode"],
+            after["dlsch_select"] - before["dlsch_select"]) == (1, 2)
+    ul = Ulsim(UlsimConfig(mcs=20, n_rb=25, n_rb_alloc=25, channel="EVA",
+                           n_harq_rounds=4, batch=8), device=cuda)
+    before = launch_counts()
+    ul.step(gen, 10.0 ** -1.6, ul.wiener(16.0))
+    after = launch_counts()
+    assert (after["dlsch_encode"] - before["dlsch_encode"],
+            after["dlsch_select"] - before["dlsch_select"]) == (1, 4)
+    tb = torch.randint(0, 2, (8, dl.dlsch.cfg.tbs), device=cuda,
+                       generator=gen, dtype=torch.int32)
+    d = dl.dlsch.encode_to_d(tb)
+    with pytest.raises(ValueError):
+        dl.dlsch.select_e([x.clone() for x in d], 3)
