@@ -298,13 +298,17 @@ def make_dd_smoother(gm: GridMap, n0: float, prior=None):
 @functools.lru_cache(maxsize=None)
 def _dd_positions(gm: GridMap, port: int, device) -> tuple:
     """Flat (symbol, subcarrier) positions in a [nsym * n_sc] field of the
-    data REs and of port `port`'s pilots; no two coincide."""
+    data REs and of port `port`'s pilots (no two coincide), and the number
+    of pilots on each subcarrier [n_sc] float32: the pilots' weight in the
+    per-subcarrier sums."""
     n_sc = gm.fp.n_sc
     psym, psc, _, _ = _port_pilot_arrays(gm, port)
     data = gm.data_sym.astype(np.int64) * n_sc + gm.data_sc
     pilot = psym.reshape(-1).astype(np.int64) * n_sc + psc.reshape(-1)
+    count = np.bincount(psc.reshape(-1), minlength=n_sc).astype(np.float32)
     return (torch.as_tensor(data, device=device),
-            torch.as_tensor(pilot, device=device))
+            torch.as_tensor(pilot, device=device),
+            torch.as_tensor(count, device=device))
 
 
 def dd_refine(y_data, s_hat, gm: GridMap, smoother, weight=None,
@@ -321,7 +325,7 @@ def dd_refine(y_data, s_hat, gm: GridMap, smoother, weight=None,
     fp = gm.fp
     B, dev = y_data.shape[0], y_data.device
     nsym, n_sc = fp.symbols_per_subframe, fp.n_sc
-    data_pos, pilot_pos = _dd_positions(gm, port, dev)
+    data_pos, pilot_pos, pilot_count = _dd_positions(gm, port, dev)
     w = torch.ones_like(y_data.real) if weight is None else weight
     num = y_data.new_zeros(B, nsym * n_sc)
     den = w.new_zeros(B, nsym * n_sc)
@@ -335,9 +339,7 @@ def dd_refine(y_data, s_hat, gm: GridMap, smoother, weight=None,
             * p["ref"].reshape(-1)
         pnum = pls.new_zeros(B, nsym * n_sc)
         pnum[:, pilot_pos] = pls
-        pden = den.new_zeros(nsym * n_sc)
-        pden[pilot_pos] = 1.0
         num = num + pnum.reshape(B, nsym, n_sc).sum(dim=1)
-        den = den + pden.reshape(nsym, n_sc).sum(dim=0)
+        den = den + pilot_count
     ls = num / torch.clamp(den, min=1e-9)
     return ls @ smoother.T

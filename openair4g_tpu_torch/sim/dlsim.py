@@ -425,22 +425,29 @@ class DlsimFading:
     def _dd_estimate(self, rgrid, y, W, n0: float):
         """Joint estimate, MRC/ZF hard decisions weighted by their
         confidence, then the decision-directed refinement. y [B, A, n_data]
-        -> H2 [B, A, n_sc]."""
+        -> H2 [B, A, n_sc]. Spans: estimate.dd, and inside it dd.joint,
+        dd.decide and dd.refine."""
         B, A = y.shape[:2]
         Wj, Wd = W
-        H1 = estimate_channel_joint(rgrid, self.gm, Wj)
-        h1 = H1[:, self._ds, self._dc].reshape(B, A, -1)
-        num = torch.sum(torch.conj(h1) * y, dim=1)
-        den = torch.sum(h1.abs() ** 2, dim=1)
-        x1 = num / torch.clamp(den, min=1e-9)    # ZF: unbiased amplitudes
-        s_hat = qam_hard_slice(x1, self.dlsch.cfg.Qm)
-        # soft-erase REs far from their decided point
-        conf = torch.exp(-0.5 * (x1 - s_hat).abs() ** 2 * den
-                         / max(n0, 1e-9))
-        H2 = dd_refine(y.reshape(B * A, -1), s_hat.repeat_interleave(A, 0),
-                       self.gm, Wd, weight=conf.repeat_interleave(A, 0),
-                       rgrid=rgrid)
-        return H2.reshape(B, A, -1)
+        with annotate("oai4g:estimate.dd"):
+            with annotate("oai4g:dd.joint"):
+                H1 = estimate_channel_joint(rgrid, self.gm, Wj)
+            with annotate("oai4g:dd.decide"):
+                h1 = H1[:, self._ds, self._dc].reshape(B, A, -1)
+                num = torch.sum(torch.conj(h1) * y, dim=1)
+                den = torch.sum(h1.abs() ** 2, dim=1)
+                # ZF: unbiased amplitudes
+                x1 = num / torch.clamp(den, min=1e-9)
+                s_hat = qam_hard_slice(x1, self.dlsch.cfg.Qm)
+                # soft-erase REs far from their decided point
+                conf = torch.exp(-0.5 * (x1 - s_hat).abs() ** 2 * den
+                                 / max(n0, 1e-9))
+            with annotate("oai4g:dd.refine"):
+                H2 = dd_refine(y.reshape(B * A, -1),
+                               s_hat.repeat_interleave(A, 0), self.gm, Wd,
+                               weight=conf.repeat_interleave(A, 0),
+                               rgrid=rgrid)
+            return H2.reshape(B, A, -1)
 
     def round(self, rnd: int, tb_bits, d_flats, tap_draw, noise_normals, n0,
               W, ev, w_soft=None, taps_prev=None):
