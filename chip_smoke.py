@@ -275,19 +275,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      then, by torch.profiler, the flagship group's decode at fixed
      iterations (on its inputs, and on noise, where every row runs them
      all) against the host loop's 2 n_iter v2 launches at its shape;
- 49. the transmit bit chain (csrc/dlsch_encode.cu, run before 42): at every
-     launch key the paths of phases 4-48 launched (the ranks' of phase 44
-     added), the encode's (B, TBS, the code blocks' E sizes) and the
-     select's (the same and the rv), through a DlschCodec of that TBS and
-     those E sizes on TB bits drawn on the card: the kernels' d (tb_crc_
-     kernel and dlsch_encode_kernel) and e (dlsch_select_kernel)
-     torch.equal to the codec's plain path (encode_to_d_ref, select_e_ref)
-     on the card, one launch a call (phases 33, 41 and 44-46 hold the keys
-     they launched there); each phase that encoded a TB must have selected
-     at the same (B, TBS, E sizes); each key's time by CUDA events beside
-     the plain path's, its device time (phase 16; the encode's two kernels
-     summed) and the bound from the bytes (TB bits in and d out, d in and
-     e out, int32);
+ 49. the bit chain around the turbo decode (csrc/dlsch_encode.cu and
+     csrc/dlsch_decode.cu, run before 42): at every launch key the paths
+     of phases 4-48 launched (the ranks' of phase 44 added), the encode's
+     (B, TBS, the code blocks' E sizes), the select's (the same and the
+     rv), the de-rate-matching's (the same, the rv and whether an old soft
+     buffer is read) and the TB check's (B, TBS, E sizes), through a
+     DlschCodec of that TBS and those E sizes on inputs drawn on the card:
+     the kernels' d (tb_crc_kernel and dlsch_encode_kernel), e
+     (dlsch_select_kernel), soft buffers and decoder inputs
+     (dlsch_dematch_kernel), TB bits and flags (dlsch_tb_check_kernel)
+     torch.equal to the codec's plain path (encode_to_d_ref, select_e_ref,
+     dematch_ref, tb_check_ref) on the card, one launch a call (phases 33,
+     41 and 44-46 hold the keys they launched there); each phase that
+     encoded a TB must have selected at the same (B, TBS, E sizes), and
+     each that de-rate-matched must have checked; each key's time by CUDA
+     events beside the plain path's, its device time (phase 16; the
+     encode's two kernels summed) and the bound from the bytes (TB bits in
+     and d out, d in and e out, int32; e, the old soft buffers, the new
+     ones and the decoder inputs, float32; the payload bits in and out,
+     int32, and the flags);
  42. observability on the flagship (phase 5's configuration): sweep with
      profile=True prints the time_meas table, each stage counted once a
      trial; the step time with the profiler on and off, in turns; then
@@ -364,6 +371,7 @@ from openair4g_tpu_torch.ops.equalize_llr import (demap_llr_fused,
                                                   demap_llr_fused_ref,
                                                   mrc_llr, mrc_llr_ref)
 from openair4g_tpu_torch.ops import convcode as convcode_mod
+from openair4g_tpu_torch.ops import dlsch_cuda
 from openair4g_tpu_torch.ops import turbo as turbo_mod
 from openair4g_tpu_torch.ops.crc import crc_device
 from openair4g_tpu_torch.ops.convcode import (search_llrs, search_llrs_ref,
@@ -465,14 +473,21 @@ TURBO_V1_SCRATCH_MAX = 45e6
 # The Viterbi kernel's two entries: [R, 3, K] (the PBCH, the CQI) and the
 # DCI blind search.
 VITERBI_NAMES = ("viterbi", "viterbi_search")
-# The transmit bit chain (csrc/dlsch_encode.cu): the encode, one launch of
-# tb_crc_kernel and dlsch_encode_kernel a TB batch, key (B, TBS, Es), the
-# code blocks' E sizes; the select, one launch of dlsch_select_kernel a
-# redundancy version, key (B, TBS, Es, rv). Held where they launch
-# (_hold_dlsch) and at every key in phase 49.
-DLSCH_NAMES = ("dlsch_encode", "dlsch_select")
+# The bit chain around the turbo decode (csrc/dlsch_encode.cu and
+# csrc/dlsch_decode.cu): the encode, one launch of tb_crc_kernel and
+# dlsch_encode_kernel a TB batch, key (B, TBS, Es), the code blocks' E
+# sizes; the select, one launch of dlsch_select_kernel a redundancy
+# version, key (B, TBS, Es, rv); the de-rate-matching, one launch of
+# dlsch_dematch_kernel a decode, key (B, TBS, Es, rv, an old soft buffer
+# read); the TB check, one launch of dlsch_tb_check_kernel a decode, key
+# (B, TBS, Es). Held where they launch (_hold_dlsch) and at every key in
+# phase 49.
+DLSCH_NAMES = ("dlsch_encode", "dlsch_select", "dlsch_dematch",
+               "dlsch_tb_check")
 DLSCH_KERNELS = {"dlsch_encode": ("tb_crc_kernel", "dlsch_encode_kernel"),
-                 "dlsch_select": ("dlsch_select_kernel",)}
+                 "dlsch_select": ("dlsch_select_kernel",),
+                 "dlsch_dematch": ("dlsch_dematch_kernel",),
+                 "dlsch_tb_check": ("dlsch_tb_check_kernel",)}
 # The turbo decode: every decoding path launches turbo_decode_kernel once a
 # (K, F) group, key (B, K, F, W, U, n_iter, CRC, dynamic_stop); the v2
 # kernel's body runs inside it, and the v2 kernel itself launches only for
@@ -3886,7 +3901,8 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
     sizes and window counts, each with the launch counts set to 0 just
     before it and read just after. The flagship's first step decodes a
     TB; the turbo cell's decodes launch the decode kernel once a call, at
-    BENCH_TURBO's shape only, every row of the fixed_8iter decode runs 8
+    BENCH_TURBO's shape only (and the de-rate-matching and TB check
+    kernels once a call), every row of the fixed_8iter decode runs 8
     iterations and those of the dynamic stop fewer on the mean; the front
     end launches no kernel. Then v2 at BENCH_TURBO bit for bit, mrc_llr at
     the flagship cell's shapes within rtol = atol = 3e-4, and every other
@@ -3910,7 +3926,8 @@ def port_bench(dev, gen, timings, held_keys: set) -> dict:
                   for label, fn in cell_steps.items()]
     per_call = cells["turbo"]["launches"]
     iters = cells["turbo"]["iterations"]
-    if per_call != {mode: {DECODE: 1.0} for mode in per_call}:
+    if per_call != {mode: {DECODE: 1.0, "dlsch_dematch": 1.0,
+                           "dlsch_tb_check": 1.0} for mode in per_call}:
         raise AssertionError(f"turbo cell decode launches {per_call}")
     if iters["fixed_8iter"] != {"mean": 8.0, "max": 8} or not \
             0 < iters["earlystop_operating"]["mean"] < 8:
@@ -4777,18 +4794,24 @@ class _BitChain:
 
 # The bit chain's rows, {(kernel, launch key): row}, each key held once
 # (_hold_dlsch), and the inputs their timed calls read, {(B, TBS, Es):
-# (codec, TB bits, d)}.
+# (codec, TB bits, d, LLRs, soft buffers, decoded groups)}.
 DLSCH_ROWS: dict = {}
 _DLSCH_INPUTS: dict = {}
 
 
 def _dlsch_calls(name: str, key: tuple, dev, gen) -> tuple:
     """(kernel, plain, bytes, codec) at a bit chain launch key: the
-    codec's call of the kernel and of its plain path (encode_to_d and
-    encode_to_d_ref on TB bits, or select_e and select_e_ref at the key's
-    rv on their d) on random TB bits drawn on the card once a (B, TBS,
-    Es), and the bytes the kernel must move: the TB bits in and d out
-    (encode), d in and e out (select), int32 each."""
+    kernel's call and its plain path's (encode_to_d and encode_to_d_ref on
+    TB bits; select_e and select_e_ref at the key's rv on their d;
+    dlsch_cuda.dematch and dematch_ref at the key's rv on LLRs of noisy e
+    bits, with soft buffers of an earlier round where the key reads them;
+    dlsch_cuda.tb_check and tb_check_ref on the code blocks' own bits, a
+    row in eight with a bit flipped, and flags half of them set) on inputs
+    drawn on the card once a (B, TBS, Es), and the bytes the kernel must
+    move: the TB bits in and d out (encode), d in and e out (select),
+    int32 each; e, the old soft buffers, the new ones and the decoder
+    inputs, float32 each (dematch); the payload bits in and out, int32,
+    and the flags (TB check)."""
     B, tbs, Es = key[:3]
     if key[:3] not in _DLSCH_INPUTS:
         codec = DlschCodec(_BitChain(tbs, Es))
@@ -4797,27 +4820,66 @@ def _dlsch_calls(name: str, key: tuple, dev, gen) -> tuple:
                                  f"{codec.Es}")
         tb = torch.randint(0, 2, (B, tbs), generator=gen, device=dev,
                            dtype=torch.int32)
-        _DLSCH_INPUTS[key[:3]] = (codec, tb, codec.encode_to_d(tb))
-    codec, tb, d = _DLSCH_INPUTS[key[:3]]
+        d = codec.encode_to_d(tb)
+        e = codec.select_e(d, 0)
+        llr = (1 - 2 * e) + torch.randn(e.shape, generator=gen, device=dev)
+        w_old = [torch.randn(B, L, generator=gen, device=dev)
+                 for L in codec.decode_plan().Ls]
+        blocks = [x[:, :K].clone() for x, K in zip(d, codec.block_Ks)]
+        blocks[-1][::8, -30] ^= 1
+        decoded = [(torch.cat([blocks[r] for r in rs]).contiguous(),
+                    torch.rand(len(rs) * B, generator=gen, device=dev) < 0.5)
+                   for _, _, rs in codec.groups]
+        _DLSCH_INPUTS[key[:3]] = (codec, tb, d, llr, w_old, decoded)
+    codec, tb, d, llr, w_old, decoded = _DLSCH_INPUTS[key[:3]]
     p = codec.kernel_plan()
     if name == "dlsch_encode":
         return (functools.partial(codec.encode_to_d, tb),
                 functools.partial(codec.encode_to_d_ref, tb),
                 4 * B * (tbs + p.dtot), codec)
-    return (functools.partial(codec.select_e, d, key[3]),
-            functools.partial(codec.select_e_ref, d, key[3]),
-            4 * B * (p.dtot + p.G), codec)
+    if name == "dlsch_select":
+        return (functools.partial(codec.select_e, d, key[3]),
+                functools.partial(codec.select_e_ref, d, key[3]),
+                4 * B * (p.dtot + p.G), codec)
+    q = codec.decode_plan()
+    if name == "dlsch_dematch":
+        old = w_old if key[4] else None
+        return (functools.partial(dlsch_cuda.dematch, llr, old, q, key[3]),
+                functools.partial(codec.dematch_ref, llr, old, key[3]),
+                4 * B * (q.G + (2 if old else 1) * q.wtot + q.drow), codec)
+    return (functools.partial(dlsch_cuda.tb_check, decoded, q),
+            functools.partial(codec.tb_check_ref, decoded),
+            B * (8 * (tbs + 24) + q.C + 1), codec)
+
+
+def _dlsch_outputs(name: str, out, codec) -> torch.Tensor:
+    """A bit chain call's outputs as one flat tensor of its dtype: the
+    blocks' streams (encode), e (select), the soft buffers and then the
+    groups' decoder inputs (dematch: the kernel's two buffers, or the
+    plain path's per-block lists grouped as the decode kernel takes them),
+    the TB bits and the flags (TB check)."""
+    if name == "dlsch_encode":
+        return torch.cat(out, 1)
+    if name == "dlsch_select":
+        return out
+    if name == "dlsch_tb_check":
+        return torch.cat([out[0].reshape(-1), out[1].to(torch.int32)])
+    w, d = out
+    if isinstance(w, list):
+        d = torch.cat([torch.cat([d[r] for r in rs]).reshape(-1)
+                       for _, _, rs in codec.groups])
+        w = torch.cat(w, 1)
+    return torch.cat([w.reshape(-1), d])
 
 
 def _hold_dlsch(name: str, key: tuple, dev, gen, timings: list) -> dict:
-    """The bit chain's kernel at a launch key, encode (B, TBS, Es) or
-    select (B, TBS, Es, rv), through a DlschCodec of that TBS and those E
-    sizes (_dlsch_calls): d (every block's streams) or e torch.equal to
-    the codec's plain path on the card, one launch a call; the time of
-    each by CUDA events over back-to-back calls, the bound from the bytes,
-    and the kernels' device time queued for phase 16 (the encode's two
-    kernels summed). The launches are not a path's. Returns the row, kept
-    in DLSCH_ROWS."""
+    """The bit chain's kernel at a launch key (DLSCH_NAMES) through a
+    DlschCodec of that TBS and those E sizes (_dlsch_calls): its outputs
+    (_dlsch_outputs) torch.equal to the codec's plain path on the card,
+    one launch a call; the time of each by CUDA events over back-to-back
+    calls, the bound from the bytes, and the kernels' device time queued
+    for phase 16 (the encode's two kernels summed). The launches are not a
+    path's. Returns the row, kept in DLSCH_ROWS."""
     if (name, key) in DLSCH_ROWS:
         return DLSCH_ROWS[name, key]
     with _not_a_path():
@@ -4826,12 +4888,12 @@ def _hold_dlsch(name: str, key: tuple, dev, gen, timings: list) -> dict:
         got, want = kernel(), plain()
         if launch_counts()[name] != n + 1:
             raise AssertionError(f"{name} {key}: not one launch a call")
-        if name == "dlsch_encode":
-            got, want = torch.cat(got, 1), torch.cat(want, 1)
+        got = _dlsch_outputs(name, got, codec)
+        want = _dlsch_outputs(name, want, codec)
         if not torch.equal(got, want):
             raise AssertionError(
                 f"{name} {key}: {int((got != want).sum())} of {got.numel()} "
-                "bits differ from the codec's plain path")
+                "values differ from the codec's plain path")
         ms = _time_ms(kernel, 10)
         plain_ms = _time_ms(plain, 3)
     bound = _bound(n_bytes, 0)
@@ -4840,7 +4902,8 @@ def _hold_dlsch(name: str, key: tuple, dev, gen, timings: list) -> dict:
     shape = (f"B {B}, TBS {tbs:,}, {len(Ks)} blocks of K "
              f"{'/'.join(f'{K:,}' for K in sorted(set(Ks)))}, F "
              f"{codec.seg.F}, E {'/'.join(f'{E:,}' for E in sorted(set(Es)))}"
-             + (f", rv {key[3]}" if name == "dlsch_select" else ""))
+             + (f", rv {key[3]}" if len(key) > 3 else "")
+             + (", old w" if name == "dlsch_dematch" and key[4] else ""))
     print(f"{name} {shape}: equal to the plain path bit for bit; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound['bound_ms']:.5f} ms", flush=True)
@@ -4874,14 +4937,18 @@ def dlsch_on_card(dev, gen, timings, ranks_launched: dict) -> dict:
               "launches by phase " + str(_by_phase_totals(
                   {k: v for k, v in launched.items() if k[0] == name})),
               flush=True)
-    encoded, selected = ({(k[1][:3], p) for k, by_phase in launched.items()
-                          if k[0] == name for p in by_phase}
-                         for name in DLSCH_NAMES)
-    if not launched or encoded != selected:
+    encoded, selected, dematched, checked = (
+        {(k[1][:3], p) for k, by_phase in launched.items() if k[0] == name
+         for p in by_phase} for name in DLSCH_NAMES)
+    if not launched or encoded != selected or dematched != checked:
         raise AssertionError(f"49: (B, TBS, Es, phase) encoded but not "
                              f"selected {sorted(encoded - selected, key=str)}"
                              f", selected but not encoded "
-                             f"{sorted(selected - encoded, key=str)}")
+                             f"{sorted(selected - encoded, key=str)}, "
+                             "de-rate-matched but not checked "
+                             f"{sorted(dematched - checked, key=str)}, "
+                             "checked but not de-rate-matched "
+                             f"{sorted(checked - dematched, key=str)}")
     for name, key in sorted(launched, key=str):
         _hold_dlsch(name, key, dev, gen, timings)
     return {"launched": launched}
@@ -5227,7 +5294,14 @@ def main() -> None:
     replaces = {"dlsch_encode": "openair4g_tpu/phy/pdsch.py:89 (the CRCs, "
                 "segmentation and turbo encoder of DlschCodec.encode_to_d)",
                 "dlsch_select": "openair4g_tpu/phy/pdsch.py:120 (the rate "
-                "matching of DlschCodec.select_e)"}
+                "matching of DlschCodec.select_e)",
+                "dlsch_dematch": "openair4g_tpu/phy/pdsch.py:144 (the rate "
+                "de-matching and HARQ combining of DlschCodec.decode)",
+                "dlsch_tb_check": "openair4g_tpu/phy/pdsch.py:144 (the TB "
+                "CRC check of DlschCodec.decode)"}
+    sources = {name: "openair4g_tpu_torch/csrc/dlsch_"
+               + ("encode" if name in DLSCH_NAMES[:2] else "decode") + ".cu"
+               for name in DLSCH_NAMES}
     for (name, key), by_phase in sorted(dls["launched"].items(), key=str):
         row = DLSCH_ROWS[name, key]
         extra = {}
@@ -5235,8 +5309,7 @@ def main() -> None:
             extra["launches_per_flagship_step"] = by_phase[5] / flagship_steps
         rows.append(dict(
             name=name, route="cuda",
-            source="openair4g_tpu_torch/csrc/dlsch_encode.cu",
-            replaces=replaces[name], key=list(key),
+            source=sources[name], replaces=replaces[name], key=list(key),
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             **extra, **row, share=row["bound_ms"] / row["device_ms"]))
     for row in rows:        # no one PyTorch call computes any of these

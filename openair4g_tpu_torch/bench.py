@@ -15,7 +15,8 @@ Cells, at bench.py's sizes, window counts and best-of-windows:
   8 iterations) decoding batch 512 of LLRs (1 - 2e) 4 + N(0, 1). TBS 7,992
   segments into 2 blocks of K = 4,032 (not K = 6,144, as bench.py's
   docstring says), so one decode is one launch of the decode kernel on
-  1,024 rows of N = 4,080 (17 windows of W = 240). Two numbers:
+  1,024 rows of N = 4,080 (17 windows of W = 240), between one of the
+  de-rate-matching kernel and one of the TB check. Two numbers:
   fixed_8iter (dynamic_stop off: every row reports 8 iterations, but a
   row whose CRC has passed skips the rest of its work, its outputs being
   fixed, so the kernel does about the work of the other cell) and

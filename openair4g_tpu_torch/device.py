@@ -25,7 +25,8 @@ HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12 / 2
 # shape), the shape as the wrapper describes it.
 _LAUNCHES = {"turbo_half_iter": 0, "turbo_half_iter_v1": 0, "turbo_decode": 0,
              "mrc_llr": 0, "demap_llr": 0, "viterbi": 0, "viterbi_search": 0,
-             "dlsch_encode": 0, "dlsch_select": 0}
+             "dlsch_encode": 0, "dlsch_select": 0, "dlsch_dematch": 0,
+             "dlsch_tb_check": 0}
 _SHAPES: dict = {}
 
 

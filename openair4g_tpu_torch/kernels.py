@@ -21,7 +21,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("turbo_half_iter.cu", "mrc_llr.cu", "viterbi.cu",
-           "dlsch_encode.cu")
+           "dlsch_encode.cu", "dlsch_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +64,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dlsch_encode_launch.restype = i
     lib.dlsch_select_launch.argtypes = [p, i, p, i, p, i, i, p]
     lib.dlsch_select_launch.restype = i
+    lib.dlsch_dematch_launch.argtypes = [p, ll, ctypes.POINTER(ll), i, p, i,
+                                         p, p, p, i, i, i, i, p]
+    lib.dlsch_dematch_launch.restype = i
+    pp = ctypes.POINTER(p)
+    lib.dlsch_tb_check_launch.argtypes = [pp, pp, i, p, i, p, i, p, p, i, p]
+    lib.dlsch_tb_check_launch.restype = i
     lib.empty_launch.argtypes = [p]
     lib.empty_launch.restype = i
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import device_plan
+from .segmentation import Segmentation, segment_tb
 
 # 36.212 Table 5.1.4-1 inter-column permutation pattern for C_TC = 32.
 PERM32 = np.array([0, 16, 8, 24, 4, 20, 12, 28, 2, 18, 10, 26, 6, 22, 14, 30,
@@ -113,6 +114,54 @@ def make_rate_match_maps(K: int, F: int, rv: int, E: int,
     d_from_order[w_src[order_base]] = np.arange(L, dtype=np.int32)
     return RateMatchMaps(K=K, F=F, rv=rv, E=E, Ncb=Ncb, L=L, r_off=r_off,
                          e_src=e_src, d_from_order=d_from_order)
+
+
+@dataclass(frozen=True)
+class BlockLayout:
+    """The code blocks of a TB of `tbs` bits whose blocks send Es[r] bits
+    each: the 36.212 segmentation of tbs + 24 bits, each block's K, its F
+    filler bits (block 0 only) and the TB bits it carries (`payload`: the
+    CRC24A counted, its own CRC24B not), the blocks a turbo decode takes
+    together (`groups`: (K, F, blocks) by (K, F), in the order of their
+    first block), and each block's maps at rv 0-3 (`maps_by_rv[rv][r]`,
+    soft buffers of compute_ncb). The codec's plain path and the card's
+    plans (ops/dlsch_cuda) all read this one layout."""
+    tbs: int
+    seg: Segmentation
+    Ks: tuple
+    Fs: tuple
+    Es: tuple
+    payload: tuple
+    groups: tuple
+    maps_by_rv: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def block_layout(tbs: int, Es: tuple) -> BlockLayout:
+    """The layout of a TB of `tbs` bits sent in Es[r] bits a code block;
+    raises ValueError where Es does not give each block one E."""
+    seg = segment_tb(tbs + 24)
+    C, Ks = seg.C, seg.block_sizes
+    if len(Es) != C:
+        raise ValueError(f"{len(Es)} E sizes for {C} code blocks")
+    Fs = tuple(seg.F if r == 0 else 0 for r in range(C))
+    L = 24 if C > 1 else 0
+    payload = tuple(K - L - F for K, F in zip(Ks, Fs))
+    if sum(payload) != tbs + 24:
+        raise ValueError(f"segmentation carries {sum(payload)} bits for "
+                         f"TBS {tbs} + 24")
+    by_kf = {}
+    for r, KF in enumerate(zip(Ks, Fs)):
+        by_kf.setdefault(KF, []).append(r)
+    maps_by_rv = tuple(
+        tuple(make_rate_match_maps(K, F, rv, E, compute_ncb(K, C))
+              for K, F, E in zip(Ks, Fs, Es))
+        for rv in range(4))
+    return BlockLayout(tbs=tbs, seg=seg, Ks=tuple(Ks), Fs=Fs,
+                       Es=tuple(Es), payload=payload,
+                       groups=tuple((K, F, tuple(rs))
+                                    for (K, F), rs in by_kf.items()),
+                       maps_by_rv=maps_by_rv)
 
 
 @dataclass(frozen=True)

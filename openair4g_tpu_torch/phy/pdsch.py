@@ -2,6 +2,8 @@
 (counterpart of openair4g_tpu/phy/pdsch.py): CRC24A, segmentation, turbo
 encode, rate matching; and back through rate de-matching with the HARQ
 soft buffer, turbo decode with the CRC latch, and the TB CRC24A check.
+On the card each half is a few launches of hand-written kernels
+(ops/dlsch_cuda); on the CPU the plain torch ops (the *_ref methods).
 """
 from __future__ import annotations
 
@@ -11,8 +13,7 @@ import torch
 
 from ..ops import dlsch_cuda, turbo
 from ..ops.crc import crc_device, crc_matrix, crc_remainder
-from ..ops.rate_match import (RateMatchMaps, block_e_sizes, compute_ncb,
-                              make_rate_match_maps, rate_match_rx,
+from ..ops.rate_match import (block_e_sizes, block_layout, rate_match_rx,
                               rate_match_tx, w_to_d_llr)
 from ..ops.segmentation import Segmentation, segment_tb
 from ..tables.tbs import get_G_dl, get_Qm, get_TBS_DL
@@ -54,23 +55,15 @@ class DlschCodec:
 
     def __init__(self, cfg: DlschConfig):
         self.cfg = cfg
-        self.seg: Segmentation = segment_tb(cfg.tbs + 24)
-        seg = self.seg
-        self.block_Ks = list(seg.block_sizes)
-        C = seg.C
+        C = segment_tb(cfg.tbs + 24).C
         self.Es = block_e_sizes(cfg.G, C, cfg.Qm)
-        self.maps_by_rv: dict[int, list[RateMatchMaps]] = {
-            rv: [make_rate_match_maps(K, seg.F if r == 0 else 0, rv,
-                                      self.Es[r], compute_ncb(K, C))
-                 for r, K in enumerate(self.block_Ks)]
-            for rv in range(4)}
+        self.layout = block_layout(cfg.tbs, tuple(self.Es))
+        self.seg: Segmentation = self.layout.seg
+        self.block_Ks = list(self.layout.Ks)
+        self.maps_by_rv = self.layout.maps_by_rv
         self.maps = self.maps_by_rv[cfg.rv]
-        L = 24 if C > 1 else 0
-        self.block_payload = [K - L - (seg.F if r == 0 else 0)
-                              for r, K in enumerate(self.block_Ks)]
-        if sum(self.block_payload) != cfg.tbs + 24:
-            raise ValueError(f"segmentation carries {sum(self.block_payload)}"
-                             f" bits for TBS {cfg.tbs} + 24")
+        self.block_payload = self.layout.payload
+        self.groups = self.layout.groups
 
     # ------------------------------------------------------------------ TX --
     def encode_to_d(self, tb_bits):
@@ -150,62 +143,99 @@ class DlschCodec:
         """e_llr [B, G] -> (tb_bits [B, TBS], tb_ok [B], w_soft list).
 
         `w_soft`: per-block soft buffers of an earlier HARQ round, or None;
-        the returned list feeds the next round. `rv` must match the
-        transmitter's redundancy version. `dynamic_stop=False` runs all
-        n_turbo_iter iterations (the outputs are the same either way).
-        `iters`: a list, or None; for a list, each (K, F) group's decode
-        appends ((K, F), the iterations its rows ran), an int32 tensor on
-        the device, read by the caller whenever it syncs."""
-        cfg, seg = self.cfg, self.seg
-        maps = self.maps_by_rv[cfg.rv if rv is None else rv]
+        the returned list feeds the next round (never written here). `rv`
+        must match the transmitter's redundancy version. `dynamic_stop=
+        False` runs all n_turbo_iter iterations (the outputs are the same
+        either way). `iters`: a list, or None; for a list, each (K, F)
+        group's decode appends ((K, F), the iterations its rows ran), an
+        int32 tensor on the device, read by the caller whenever it syncs.
+        A CUDA tensor takes a launch of the de-rate-matching kernel, one
+        of the decode kernel a (K, F) group and one of the TB check
+        (ops/dlsch_cuda.dematch and tb_check; the blocks' soft buffers
+        views of one buffer); a CPU tensor decode_ref."""
+        if e_llr.device.type == "cpu":
+            return self.decode_ref(e_llr, w_soft, rv, dynamic_stop, iters)
+        rv = self.cfg.rv if rv is None else rv
+        p = self.decode_plan()
         B = e_llr.shape[0]
         with annotate("oai4g:decode.dematch"):
-            pos = 0
-            new_w = []
-            d_llrs = []
-            for r in range(seg.C):
-                E = self.Es[r]
-                w = rate_match_rx(e_llr[:, pos:pos + E], maps[r],
-                                  None if w_soft is None else w_soft[r])
-                pos += E
-                new_w.append(w)
-                d_llrs.append(w_to_d_llr(w, maps[r]))
-
+            w, d = dlsch_cuda.dematch(e_llr, w_soft, p, rv)
         with annotate("oai4g:decode.turbo"):
-            win = cfg.decoder_window
-            if win is None:
-                win = 96 if e_llr.device.type == "cpu" else 240
-            results = [None] * seg.C
-            by_plan = {}
-            for r, K in enumerate(self.block_Ks):
-                by_plan.setdefault((K, seg.F if r == 0 else 0), []).append(r)
-            for (K, F), rs in by_plan.items():
-                stacked = torch.cat([d_llrs[r] for r in rs], dim=0)
-                dcfg = turbo.TurboDecoderConfig(
-                    K=K, F=F, n_iter=cfg.n_turbo_iter, window=win,
-                    warmup=cfg.decoder_warmup,
-                    crc_kind="crc24b" if seg.C > 1 else "crc24a",
-                    dynamic_stop=dynamic_stop)
-                ran = None
-                if iters is not None:
-                    ran = torch.empty(stacked.shape[0], dtype=torch.int32,
-                                      device=stacked.device)
-                    iters.append(((K, F), ran))
-                bits, ok = turbo.turbo_decode(stacked, dcfg, ran)
-                for i, r in enumerate(rs):
-                    results[r] = (bits[i * B:(i + 1) * B],
-                                  ok[i * B:(i + 1) * B])
-
+            decoded = self._turbo(dlsch_cuda.group_inputs(d, p, B),
+                                  dynamic_stop, iters)
         with annotate("oai4g:decode.crc"):
-            payloads = []
-            all_ok = torch.ones(B, dtype=torch.bool, device=e_llr.device)
-            L = 24 if seg.C > 1 else 0
-            for r in range(seg.C):
-                bits, ok = results[r]
-                F = seg.F if r == 0 else 0
-                payloads.append(bits[:, F:bits.shape[1] - L])
-                all_ok = all_ok & ok
-            b_hat = torch.cat(payloads, dim=1)                 # [B, TBS+24]
-            rem = crc_remainder(b_hat, crc_matrix(cfg.tbs + 24, "crc24a"))
-            tb_ok = all_ok & torch.all(rem < 0.5, dim=-1)
-            return b_hat[:, :cfg.tbs], tb_ok, new_w
+            b_hat, tb_ok = dlsch_cuda.tb_check(decoded, p)
+        return b_hat[:, :self.cfg.tbs], tb_ok, dlsch_cuda.w_views(w, p)
+
+    def decode_ref(self, e_llr, w_soft=None, rv: int | None = None,
+                   dynamic_stop: bool = True, iters: list | None = None):
+        """The plain version of decode, on any device: dematch_ref, each
+        group's blocks concatenated into turbo_decode, tb_check_ref."""
+        with annotate("oai4g:decode.dematch"):
+            new_w, d_llrs = self.dematch_ref(e_llr, w_soft, rv)
+        with annotate("oai4g:decode.turbo"):
+            decoded = self._turbo([torch.cat([d_llrs[r] for r in rs], dim=0)
+                                   for _, _, rs in self.groups],
+                                  dynamic_stop, iters)
+        with annotate("oai4g:decode.crc"):
+            b_hat, tb_ok = self.tb_check_ref(decoded)
+        return b_hat[:, :self.cfg.tbs], tb_ok, new_w
+
+    def dematch_ref(self, e_llr, w_soft=None, rv: int | None = None):
+        """Each block's new soft buffer (rate_match_rx with the HARQ add)
+        and decoder input [B, 3, K + 4] (w_to_d_llr): two lists."""
+        maps = self.maps_by_rv[self.cfg.rv if rv is None else rv]
+        pos = 0
+        new_w, d_llrs = [], []
+        for r in range(self.seg.C):
+            E = self.Es[r]
+            w = rate_match_rx(e_llr[:, pos:pos + E], maps[r],
+                              None if w_soft is None else w_soft[r])
+            pos += E
+            new_w.append(w)
+            d_llrs.append(w_to_d_llr(w, maps[r]))
+        return new_w, d_llrs
+
+    def tb_check_ref(self, decoded):
+        """(b_hat [B, TBS + 24], tb_ok [B]) from each group's (bits, done)
+        in self.groups' order: the blocks' payloads in turn, their flags
+        and the TB's CRC24A as a GF(2) product."""
+        seg = self.seg
+        L = 24 if seg.C > 1 else 0
+        payloads = [None] * seg.C
+        all_ok = None
+        for (_, F, rs), (bits, ok) in zip(self.groups, decoded):
+            B = bits.shape[0] // len(rs)
+            for i, r in enumerate(rs):
+                payloads[r] = bits[i * B:(i + 1) * B, F:bits.shape[1] - L]
+                flag = ok[i * B:(i + 1) * B]
+                all_ok = flag if all_ok is None else all_ok & flag
+        b_hat = torch.cat(payloads, dim=1)                     # [B, TBS+24]
+        rem = crc_remainder(b_hat, crc_matrix(self.cfg.tbs + 24, "crc24a"))
+        return b_hat, all_ok & torch.all(rem < 0.5, dim=-1)
+
+    def decode_plan(self) -> dlsch_cuda.DecodePlan:
+        """The plan the card's de-rate-matching and TB check kernels read."""
+        return dlsch_cuda.decode_plan(self.cfg.tbs, tuple(self.Es))
+
+    def _turbo(self, inputs, dynamic_stop: bool, iters):
+        """turbo_decode of each (K, F) group's input [n B, 3, K + 4], in
+        self.groups' order: [(bits, done)]."""
+        cfg, seg = self.cfg, self.seg
+        win = cfg.decoder_window
+        if win is None:
+            win = 96 if inputs[0].device.type == "cpu" else 240
+        out = []
+        for (K, F, _), stacked in zip(self.groups, inputs):
+            dcfg = turbo.TurboDecoderConfig(
+                K=K, F=F, n_iter=cfg.n_turbo_iter, window=win,
+                warmup=cfg.decoder_warmup,
+                crc_kind="crc24b" if seg.C > 1 else "crc24a",
+                dynamic_stop=dynamic_stop)
+            ran = None
+            if iters is not None:
+                ran = torch.empty(stacked.shape[0], dtype=torch.int32,
+                                  device=stacked.device)
+                iters.append(((K, F), ran))
+            out.append(turbo.turbo_decode(stacked, dcfg, ran))
+        return out

@@ -28,6 +28,7 @@ from openair4g_tpu_torch.sim.dlsim import DlsimFading, DlsimFadingConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
 from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
+from test_torch_dlsch_decode import _TbsConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -365,3 +366,118 @@ def test_dlsch_kernels_launch_once_a_trial_and_once_a_round(cuda):
     d = dl.dlsch.encode_to_d(tb)
     with pytest.raises(ValueError):
         dl.dlsch.select_e([x.clone() for x in d], 3)
+
+
+# --------------------------------------- the DLSCH receive bit chain --
+
+def _decode_equal(codec, B, cuda, seed, rvs=(0, 2, 3, 1)):
+    """DlschCodec.decode on the card (the dematch and TB check kernels)
+    against its plain path on the card (decode_ref), HARQ rounds at rvs
+    combined, dynamic stop on and off: b_hat, tb_ok, every block's soft
+    buffer and the iterations bit for bit; the w passed in unchanged; one
+    launch of each kernel a call. The LLRs: an encoded TB at a spread of
+    SNRs, so that some rows decode and some do not."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    tb = torch.randint(0, 2, (B, codec.cfg.tbs), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    d = codec.encode_to_d(tb)
+    amp = torch.linspace(0.3, 3.0, B, device=cuda)[:, None]
+    for dyn in (True, False):
+        w_k = w_p = None
+        for rv in rvs:
+            e = codec.select_e(d, rv)
+            llr = (amp * (1 - 2 * e) + 2 * torch.randn(
+                e.shape, generator=gen, device=cuda)).contiguous()
+            held = None if w_k is None else [x.clone() for x in w_k]
+            before = launch_counts()
+            it_k, it_p = [], []
+            got = codec.decode(llr, w_soft=w_k, rv=rv, dynamic_stop=dyn,
+                               iters=it_k)
+            after = launch_counts()
+            want = codec.decode_ref(llr, w_soft=w_p, rv=rv, dynamic_stop=dyn,
+                                    iters=it_p)
+            what = (codec.cfg, B, rv, dyn)
+            assert (after["dlsch_dematch"] - before["dlsch_dematch"],
+                    after["dlsch_tb_check"] - before["dlsch_tb_check"]) \
+                == (1, 1), what
+            assert torch.equal(got[0], want[0]), what
+            assert torch.equal(got[1], want[1]), what
+            assert len(got[2]) == len(want[2]) == codec.seg.C
+            for a, b in zip(got[2], want[2]):
+                assert torch.equal(a, b), what
+            assert [k for k, _ in it_k] == [k for k, _ in it_p]
+            for (_, a), (_, b) in zip(it_k, it_p):
+                assert torch.equal(a, b), what
+            if held is not None:
+                assert all(torch.equal(a, b) for a, b in zip(w_k, held)), \
+                    what
+            w_k, w_p = got[2], want[2]
+
+
+@pytest.mark.parametrize("B", [1, 128, 512])
+def test_dlsch_decode_kernels_match_plain_path_at_the_cells(cuda, B):
+    """The benchmark's codecs: the flagship's (MCS 26, 100 PRB, CFI 1), the
+    dd cell's (CFI 2) and the uplink's with its UCI, four rounds each."""
+    ul = Ulsim(UlsimConfig(mcs=20, n_rb=100, n_rb_alloc=100, batch=B,
+                           uci=UciConfig(o_cqi=30, o_ri=1, o_ack=2)),
+               device=cuda).codec
+    for i, codec in enumerate((DlschCodec(DlschConfig(mcs=26, n_rb=100)),
+                               DlschCodec(DlschConfig(mcs=26, n_rb=100,
+                                                      n_pdcch_symbols=2)),
+                               ul)):
+        _decode_equal(codec, B, cuda, seed=B + i)
+
+
+@pytest.mark.parametrize("case", [
+    *[("block", K, reps) for K in (40, 200, 1024, 5504, 5632, 6144)
+      for reps in (1, 2, 3)],
+    ("tb", 544, 1_200), ("tb", 6_208, 9_000), ("tb", 12_224, 30_000),
+], ids=str)
+def test_dlsch_decode_kernels_match_plain_path_at_the_replay_keys(cuda,
+                                                                  case):
+    """The CPU replay's keys (test_torch_dlsch_decode.py): C = 1 at K = 40
+    to 6,144 with 1-3 repetitions, fillers, K+/K- mixes, three groups;
+    batch 1 and 3."""
+    if case[0] == "block":
+        _, K, reps = case
+        tbs, G = K - 24, 4 * round((reps - 0.5) * 3 * (K + 4) / 4)
+    else:
+        _, tbs, G = case
+    codec = DlschCodec(_TbsConfig(mcs=10, n_rb=25, tbs_bits=tbs,
+                                  g_override=G))
+    for B in (1, 3):
+        _decode_equal(codec, B, cuda, seed=B)
+
+
+@pytest.mark.parametrize("n_rb", [6, 25, 100])
+def test_dlsch_decode_kernels_match_plain_path_at_every_table_tbs(cuda,
+                                                                  n_rb):
+    """Every DL MCS at 1 and 2 ports and CFI 1-3, and every UL MCS (K = 40
+    to 6,144, E up to several times L), two rounds at batch 3."""
+    codecs = [DlschCodec(DlschConfig(mcs=m, n_rb=n_rb, nports=p,
+                                     n_pdcch_symbols=cfi))
+              for m in range(29) for p in (1, 2) for cfi in (1, 3)]
+    codecs += [DlschCodec(UlschConfig(mcs=m, n_rb_alloc=n_rb))
+               for m in range(29)]
+    for i, codec in enumerate(codecs):
+        _decode_equal(codec, 3, cuda, seed=1000 * n_rb + i, rvs=(0, 2))
+
+
+def test_dlsch_decode_kernels_launch_once_a_round(cuda):
+    """One dematch and one TB check a round in the DL and the UL."""
+    dl = DlsimFading(DlsimFadingConfig(mcs=26, n_rb=25, channel="EVA",
+                                       n_harq_rounds=2, batch=8,
+                                       n_turbo_iter=4), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = launch_counts()
+    dl.step(gen, 10.0 ** -3.0, dl.wiener(30.0), dl.err_var(30.0))
+    after = launch_counts()
+    assert (after["dlsch_dematch"] - before["dlsch_dematch"],
+            after["dlsch_tb_check"] - before["dlsch_tb_check"]) == (2, 2)
+    ul = Ulsim(UlsimConfig(mcs=20, n_rb=25, n_rb_alloc=25, channel="EVA",
+                           n_harq_rounds=4, batch=8), device=cuda)
+    before = launch_counts()
+    ul.step(gen, 10.0 ** -1.6, ul.wiener(16.0))
+    after = launch_counts()
+    assert (after["dlsch_dematch"] - before["dlsch_dematch"],
+            after["dlsch_tb_check"] - before["dlsch_tb_check"]) == (4, 4)

@@ -8,7 +8,7 @@ against the host's golden encoder, the CRCs, the codec's plain path and
 the JAX package's codec, and the wrappers' decisions. The kernels' own tests are in
 test_torch_cuda.py."""
 import zlib
-from dataclasses import asdict, dataclass
+from dataclasses import asdict
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,21 +30,11 @@ from openair4g_tpu_torch.phy.pusch import UlschConfig
 from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
 from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 from openair4g_tpu_torch.tables.qpp import QPP_BY_K
+from test_torch_dlsch_decode import _TbsConfig
 
 torch.set_num_threads(1)
 
 U32 = np.uint32
-
-
-@dataclass(frozen=True)
-class _TbsConfig(DlschConfig):
-    """A DlschConfig of any TBS: the TBS table leaves out the TBs with
-    filler bits or a K+/K- mix."""
-    tbs_bits: int = 0
-
-    @property
-    def tbs(self) -> int:
-        return self.tbs_bits
 
 
 # ------------------------------------------------- the kernels' replay --
