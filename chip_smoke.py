@@ -308,7 +308,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      measure), each beside the launch floor, the device time of an empty <<<1, 32>>> kernel of the
      same library (kernels of different names share a profiler session);
      then the device kernels, copies and fills of one v1 call, which must
-     be its one kernel; then the device time a step of phase 13's, 19's,
+     be its one kernel; then the device time (kernels, copies and fills;
+     not the ranges of the program's spans) a step of phase 13's, 19's,
      24's and 29's paths, with the decode kernel's share of the uplink,
      MBSFN and full-chain steps', of a call of each phase 26 path, and of a
      TTI of phase 36's and 37's Oaisims, with its share of the first, and of
@@ -416,8 +417,7 @@ from openair4g_tpu_torch.sim.dlsim import (DlsimAwgn, DlsimConfig,
 from openair4g_tpu_torch.sim.framegen import generate_frame
 from openair4g_tpu_torch.sim.fullsim import FullChainSim, FullsimConfig
 from openair4g_tpu_torch.sim.harness import dlsim_main, fullsim_main
-from openair4g_tpu_torch.scripts import (awgn_campaign, decode_times,
-                                         doppler_campaign,
+from openair4g_tpu_torch.scripts import (awgn_campaign, doppler_campaign,
                                          eva_ablation, fading_campaign,
                                          fidelity_campaign, flagship_profile,
                                          flagship_stages, prach_roc,
@@ -428,7 +428,6 @@ from openair4g_tpu_torch.sim.dlsim_mimo import DlsimTxDiv, DlsimTxDivConfig
 from openair4g_tpu_torch.sim.dlsim_sm import DlsimSm, DlsimSmConfig
 from openair4g_tpu_torch.sim.oaisim import (Oaisim, OaisimConfig,
                                             calibrated_bler_table)
-from openair4g_tpu_torch.sim.phase_split import OAISIM_FULL, profile_steps
 from openair4g_tpu_torch.ops.uci import UciConfig
 from openair4g_tpu_torch.sim.mbmssim import Mbmssim, MbmssimConfig
 from openair4g_tpu_torch.sim.pbchsim import Pbchsim, PbchsimConfig
@@ -444,7 +443,7 @@ from openair4g_tpu_torch.sim.ulsim import Ulsim, UlsimConfig
 from openair4g_tpu_torch.utils import profiler
 from openair4g_tpu_torch.utils.opt import (DIR_DL, DIR_UL, KIND_IP, KIND_MAC,
                                            read_pcap)
-from openair4g_tpu_torch.utils.tracing import trace_artifacts
+from openair4g_tpu_torch.utils.tracing import profile_calls, trace_artifacts
 
 # Flagship shapes: 128 subframes x 11 code blocks of K = 5632 decode as
 # 1,408 rows of N = 5760 (24 windows of W = 240); 15,000 data REs and
@@ -574,26 +573,19 @@ def _timed_v2(kernel) -> tuple:
 
 def _profiled(items: list, n: int) -> list:
     """[(launches seen, summed device µs)] for each (fn, kernel name) of
-    items: n back-to-back calls of each fn in turn, recorded in the second
-    of two profiler cycles (the first, the same calls, lets the device
-    tracing start: a session that records from its first call can miss the
-    launches made while it starts). A kernel name is matched with the
-    spaces taken out, and no two items of one session may share one. An
-    item's kernel may be a tuple of the names of the kernels one call of
-    fn launches once each: its launches are the fewest seen of any, its
-    time their sum."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-        for _ in range(2):
-            for fn, _ in items:
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-            prof.step()
-    events = [(e.key.replace(" ", ""), e.count, e.self_device_time_total)
-              for e in prof.key_averages() if e.self_device_time_total > 0]
+    items: n back-to-back calls of each fn in turn, in one profile_calls
+    session. A kernel name is matched with the spaces taken out, and no
+    two items of one session may share one. An item's kernel may be a
+    tuple of the names of the kernels one call of fn launches once each:
+    its launches are the fewest seen of any, its time their sum."""
+    def each():
+        for fn, _ in items:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    events, _ = profile_calls(each, 1)
+    events = [(key.replace(" ", ""), count, us)
+              for key, (count, us) in events.items() if us > 0]
     return [(min(sum(c for key, c, _ in events if k in key)
                  for k in _names(kernel)),
              sum(us for key, _, us in events
@@ -647,33 +639,20 @@ def _device_ms(items: list, n: int) -> list:
     return [(us / count / 1e3, count) for count, us in best]
 
 
-def _device_events(fn) -> list:
-    """(name, count) of every device-side event (kernels, copies, fills)
-    that one call of fn makes, by torch.profiler."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-
-
 PROFILED_STEPS = 2
 
 
 def _step_device_time(fn) -> tuple:
     """(device ms a call, the decode kernel's device ms a call, its
-    launches seen, host ms a profiled call) over PROFILED_STEPS calls of
-    fn, by torch.profiler."""
-    events, dev_us, wall = profile_steps(fn, PROFILED_STEPS)
-    dec = [e for e in events if e.self_device_time_total > 0
-           and "turbo_decode_kernel<" in e.key.replace(" ", "")]
-    return (dev_us / PROFILED_STEPS / 1e3,
-            sum(e.self_device_time_total for e in dec) / PROFILED_STEPS / 1e3,
-            sum(e.count for e in dec), wall * 1e3)
+    launches seen, host ms a profiled call, {device event: (count, µs)})
+    over PROFILED_STEPS calls of fn, by profile_calls."""
+    events, wall = profile_calls(fn, PROFILED_STEPS)
+    events = {key: v for key, v in events.items() if v[1] > 0}
+    dec = [v for key, v in events.items()
+           if "turbo_decode_kernel<" in key.replace(" ", "")]
+    return (sum(us for _, us in events.values()) / PROFILED_STEPS / 1e3,
+            sum(us for _, us in dec) / PROFILED_STEPS / 1e3,
+            sum(count for count, _ in dec), wall * 1e3, events)
 
 
 def device_times(timings: list, one_launch: tuple, dd: tuple,
@@ -704,10 +683,10 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
     with _not_a_path():
         (floor, count), *times = _device_ms(items, 20)
         times = iter(times)
-        decode_times = iter(_device_ms(
+        decode_ms = iter(_device_ms(
             [(fn, kernel) for _, fn, kernel, _ in timings
              if kernel == DECODE_KERNEL], 5))
-    times = [next(decode_times if kernel == DECODE_KERNEL else times)
+    times = [next(decode_ms if kernel == DECODE_KERNEL else times)
              for _, _, kernel, _ in timings]
     print(f"launch floor: an empty <<<1, 32>>> kernel takes {floor:.4f} ms "
           f"of device time (mean of {count} launches)", flush=True)
@@ -719,9 +698,9 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
             row["launch_floor_ms"] = floor
 
     label, fn, kernel = one_launch
-    fn()
     for _ in range(3):       # a session can miss events: none seen, again
-        seen = _device_events(fn)
+        seen = [(key, count) for key, (count, us)
+                in profile_calls(fn, 1)[0].items() if us > 0]
         if seen:
             break
     print(f"{label}: the device events of one call: {seen}", flush=True)
@@ -734,7 +713,8 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
     n0 = 10.0 ** (-snr / 10.0)
     gen = torch.Generator(device=sim.device).manual_seed(5)
     W, ev = sim.wiener(snr), sim.err_var(snr)
-    dev_ms, _, _, wall = _step_device_time(lambda: sim.step(gen, n0, W, ev))
+    dev_ms, _, _, wall, _ = _step_device_time(
+        lambda: sim.step(gen, n0, W, ev))
     print(f"dd 1x2 100 PRB, 4 rounds: {dev_ms:.2f} ms device time a step "
           f"over {PROFILED_STEPS} profiled steps ({wall:.1f} ms a profiled "
           "step on the host)", flush=True)
@@ -755,7 +735,7 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
         gen = torch.Generator(device=sim.device).manual_seed(5)
         n0 = 10.0 ** (-snr / 10.0)
         args = state(sim, snr)
-        dev_ms, dec_ms, dec_n, wall = _step_device_time(
+        dev_ms, dec_ms, dec_n, wall, _ = _step_device_time(
             lambda: sim.step(gen, n0, *args))
         share = dec_ms / dev_ms if dev_ms else 0.0
         print(f"{label} at {snr} dB: {dev_ms:.2f} ms device time a step over "
@@ -767,7 +747,7 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
                         "kernel_share": share, "profiled_step_ms": wall})
     by_step = {}
     for label, fn in steps:
-        dev_ms, dec_ms, dec_n, wall = _step_device_time(fn)
+        dev_ms, dec_ms, dec_n, wall, events = _step_device_time(fn)
         print(f"{label}: {dev_ms:.2f} ms device time a call over "
               f"{PROFILED_STEPS} profiled calls, the decode kernel "
               f"{dec_ms:.3f} ms of it ({dec_n} launches seen); {wall:.1f} ms "
@@ -775,17 +755,14 @@ def device_times(timings: list, one_launch: tuple, dd: tuple,
         by_step[label] = {"device_ms": dev_ms, "kernel_device_ms": dec_ms,
                           "profiled_ms": wall}
         if label in top_events_of:
-            events, _, _ = profile_steps(fn, PROFILED_STEPS)
-            top = sorted((e for e in events if e.self_device_time_total > 0
-                          and e.device_type ==
-                          torch.autograd.DeviceType.CUDA),
-                         key=lambda e: -e.self_device_time_total)[:5]
+            top = sorted(events.items(), key=lambda kv: -kv[1][1])[:5]
             print("  its largest device events a call: " + "; ".join(
-                f"{e.key[:60]} {e.self_device_time_total / PROFILED_STEPS / 1e3:.3f}"
-                f" ms x{e.count // PROFILED_STEPS}" for e in top), flush=True)
+                f"{key[:60]} {us / PROFILED_STEPS / 1e3:.3f} ms "
+                f"x{count // PROFILED_STEPS}" for key, (count, us) in top),
+                flush=True)
     per_tti = {}
     for label, sim in frames:
-        dev_ms, dec_ms, dec_n, wall = _step_device_time(
+        dev_ms, dec_ms, dec_n, wall, _ = _step_device_time(
             lambda: sim.run_frames(1))
         share = dec_ms / dev_ms if dev_ms else 0.0
         print(f"{label}: {dev_ms / 10:.3f} ms device time a TTI over "
@@ -2849,6 +2826,11 @@ def check_small_oaisim(dev) -> None:
 # PRB: TBS 30,576) decode as 640 rows of N = 6,240 (26 windows of 240)
 # for each eNB; the trellis ends at K + 3 = 6,147.
 OAISIM_ROWS, OAISIM_N, OAISIM_KT = 128 * 5, 6240, 6147
+# The full-width full-PHY system emulator of phase 36 (phase 16 times it).
+OAISIM_FULL = dict(n_enb=3, n_ue=128, n_rb=100, mcs=16, channel="EPA",
+                   mode="phy", n_harq_rounds=4, n_turbo_iter=6,
+                   mobility="static", traffic="full", mac="rr",
+                   tx_power_db=60.0)
 
 
 def check_turbo_oaisim(dev, gen) -> dict:
@@ -2858,14 +2840,13 @@ def check_turbo_oaisim(dev, gen) -> dict:
 
 
 def oaisim_full_phy(dev) -> tuple:
-    """Phase 36: the full-PHY Oaisim at full width (phase_split's
-    OAISIM_FULL: 3 eNBs 500 m apart, 128 static UEs, 100 PRB, MCS 16, EPA,
-    4 HARQ rounds, 6 iterations, full buffer, RR, TX power 60 dB) over 4
-    frames. Every eNB schedules every TTI (tb_sent + retx = 120), no UE
-    whose geometry SINR is at least 20 dB loses a TB, the decode kernel
-    launches on every TTI at 640 rows of K = 6,144 (v2's 640 x 6,240) and
-    no other kernel launches. Then 1 eNB at 70 dB loses no TB and
-    retransmits none. Returns (decode launches a TTI, the 3-eNB sim)."""
+    """Phase 36: the full-PHY Oaisim at full width (OAISIM_FULL: 3 eNBs
+    500 m apart, 128 static UEs, 100 PRB, MCS 16, EPA, 4 HARQ rounds, 6
+    iterations, full buffer, RR, TX power 60 dB) over 4 frames. Every eNB
+    schedules every TTI (tb_sent + retx = 120), no UE whose geometry SINR
+    is at least 20 dB loses a TB, the decode kernel launches on every TTI
+    at 640 rows of K = 6,144 (v2's 640 x 6,240) and no other kernel
+    launches. Then 1 eNB at 70 dB loses no TB and retransmits none. Returns (decode launches a TTI, the 3-eNB sim)."""
     sim = Oaisim(OaisimConfig(**OAISIM_FULL), device=dev)
     per_tti = []
     tti_phy = sim._tti_phy
@@ -4642,7 +4623,7 @@ def _hold_turbo_decode(key: tuple, dev, gen, timings: list) -> dict:
     # iteration count (the dynamic-stop counts; a row that never latches
     # runs n_iter in both modes).
     rows, staged = turbo_cuda.decode_plan(B, K, W)
-    blocks = decode_times.block_iterations(ran[True], rows)
+    blocks = _block_iterations(ran[True], rows)
     print(f"turbo_decode {key}: bits, flags and iterations equal to the "
           f"host loop's in both modes ({n_ok}/{B} latched; mean iterations "
           f"{ran[dyn].double().mean().item():.2f} at dynamic_stop={dyn}, "
@@ -4659,6 +4640,16 @@ def _hold_turbo_decode(key: tuple, dev, gen, timings: list) -> dict:
     timings.append((f"turbo_decode {key}", kernel, DECODE_KERNEL, row))
     DECODE_ROWS[key] = row
     return row
+
+
+def _block_iterations(iters, rows: int) -> float:
+    """The mean over blocks of rows rows of the block's largest iteration
+    count (what a block runs: its rows step together)."""
+    n = iters.numel()
+    pad = torch.zeros(-(-n // rows) * rows, dtype=iters.dtype,
+                      device=iters.device)
+    pad[:n] = iters
+    return pad.reshape(-1, rows).max(dim=1).values.double().mean().item()
 
 
 def turbo_decode_on_card(dev, gen, timings, ranks_launched: dict) -> dict:

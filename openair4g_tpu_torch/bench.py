@@ -34,7 +34,7 @@ calls, after one warm-up step (the launch counts are read, never reset);
 the stage timers of utils/profiler, which wait for the device once a
 round, are off while a cell runs (bench.py times the jitted programs,
 which have none). After every cell has run, one torch.profiler window of
-2 steps a cell gives its device ms a step. One JSON line a cell (value = best window,
+2 steps a cell, after 2 unrecorded ones, gives its device ms a step. One JSON line a cell (value = best window,
 the median window, every window's seconds, device ms a step, launches by
 kernel and by shape over the timed windows, the card's name and power
 limit), then a last line with bench.py's keys (metric, value, unit,
@@ -63,6 +63,7 @@ from .phy.pdsch import DlschCodec, DlschConfig
 from .phy.resource_grid import extract_data_res, make_grid_map
 from .sim.dlsim import DlsimAwgn, DlsimConfig, DlsimFading, DlsimFadingConfig
 from .utils import profiler
+from .utils.tracing import profile_calls
 
 METRIC = "pdsch_subframes_per_s_per_chip(mcs26_100prb_EVA_estCE_8iter)"
 REAL_TIME_SUBFRAMES_PER_S = 1000.0     # 1 subframe / 1 ms (BASELINE.md)
@@ -125,9 +126,8 @@ def device_ms(step, dev, n: int = PROFILED_STEPS):
     calls in one torch.profiler window; None on the CPU (no device)."""
     if dev.type != "cuda":
         return None
-    from .sim.phase_split import profile_steps
-    _, dev_us, _ = profile_steps(step, n)
-    return dev_us / n / 1e3
+    events, _ = profile_calls(step, n)
+    return sum(us for _, us in events.values()) / n / 1e3
 
 
 def flagship(device=None, batch: int = 128, n_rep: int = 10,

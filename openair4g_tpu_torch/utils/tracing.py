@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import os
+import time
 
 import torch
 
@@ -71,6 +72,39 @@ def trace(outdir: str, device=None):
                     outdir, f"trace_{os.getpid()}_{next(_count)}.json"))
             except Exception as e:              # pragma: no cover
                 print(f"[tracing] stop_trace failed: {e}")
+
+
+def profile_calls(fn, n: int) -> tuple:
+    """Two cycles of n calls of fn under torch.profiler, CUDA activity too
+    on a card: a warm-up cycle not recorded (a session can miss the device
+    events of launches made while it starts), then the recorded one.
+    Returns ({event key: (count, self device µs)}, host seconds a recorded
+    call). Only kernels, copies and fills count device µs; host events and
+    the ranges the profiler draws on the device for annotations (its own
+    step, the program's spans) count 0, so the µs add up to n calls'
+    device time."""
+    on_card = torch.cuda.is_available()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            if on_card:
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n
+            prof.step()
+    events = {}
+    for e in prof.key_averages():
+        on_device = (e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation)
+        us = e.self_device_time_total if on_device else 0.0
+        if us > 0 or e.key not in events:
+            events[e.key] = (e.count, us)
+    return events, wall
 
 
 def annotate(name: str):

@@ -201,20 +201,3 @@ def test_tm5_interference_aware_beats_naive():
     e_nv, _ = DlsimSm(DlsimSmConfig(ia_receiver=False, **common),
                       device="cpu").run_snr(20.0, 64)
     assert e_ia.sum() <= e_nv.sum() and e_ia.sum() <= 0.25 * t, (e_ia, e_nv)
-
-
-def test_phase_split_wraps_each_phase_and_restores_it():
-    from openair4g_tpu_torch.sim import dlsim_mimo, dlsim_sm, phase_split
-    before = (dlsim_sm.mmse_detect, dlsim_mimo.SfbcPdcch.rx,
-              dlsim_mimo.demap_llr_fused)
-    saved = phase_split.patch()
-    try:
-        # 35 downlink phases (the DCI's Viterbi and the turbo decode kernel
-        # among them), 11 uplink (the CQI's Viterbi among them), 7 of the
-        # full chain, 3 of oaisim, 3 of the capstone's DL TTI
-        assert len(saved) == 59
-        assert all(getattr(o, a).__wrapped__ is f for o, a, f in saved)
-    finally:
-        phase_split.unpatch(saved)
-    assert (dlsim_sm.mmse_detect, dlsim_mimo.SfbcPdcch.rx,
-            dlsim_mimo.demap_llr_fused) == before

@@ -131,6 +131,19 @@ def test_annotate_spans_nest_in_the_trace(tmp_path):
     assert {"outer", "inner"} <= names
 
 
+def test_profile_calls_records_the_second_cycle_of_n_calls():
+    """profile_calls records n calls of fn, not its warm-up cycle's, spans
+    included, and on the CPU every event has 0 µs of device time."""
+    x = torch.ones(8)
+
+    def fn():
+        with tracing.annotate("oai4g:test.span"):
+            return torch.mul(x, 2.0)
+    events, wall = tracing.profile_calls(fn, 3)
+    assert events["aten::mul"][0] == events["oai4g:test.span"][0] == 3
+    assert all(us == 0 for _, us in events.values()) and wall > 0
+
+
 @pytest.mark.parametrize("result", [
     torch.ones(3),
     (torch.ones(2), torch.zeros(2)),
